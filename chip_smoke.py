@@ -4,20 +4,28 @@
     python3 chip_smoke.py [--seed 0] [--profile PATH]
 
 Phases (any failure exits non-zero):
-1. build both blend kernels from csrc/ with nvcc for sm_90a and print
-   ptxas's register / shared-memory / spill report;
+1. build both blend kernels from csrc/ with nvcc for sm_90a, print
+   ptxas's register / shared-memory / spill report and, from the SASS
+   (cuobjdump), the instructions of each kernel's entry loop per
+   evaluation;
 2. set up the trained-statistics scene: 1,000,000 Gaussians at SH degree 3
    (random, from --seed), bimodal opacities, 1920x1080, fovx 1.2, 16x16
    tiles, max_per_tile 128, dup_factor 1.25;
 3. hold kernel K1 (blend forward) against its plain PyTorch version on the
    scene's packed entries, and time both;
 4. hold kernel K2 (blend backward) against its plain version on the same
-   entries and random cotangents, and time both;
-5. the main path: with every launch count at 0, render a target from the
+   entries and random cotangents, per column and per entry (bwd_scale),
+   and time both;
+5. ragged edges: synthetic entries (numpy, from --seed) with per-tile counts
+   at the kernels' chunk edges, a tile whose pixels all stop at entry 1 and
+   garbage in the pad rows, for every tile shape the kernels are built for;
+   both kernels against their plain versions, K2 twice for bitwise
+   determinism;
+6. the main path: with every launch count at 0, render a target from the
    true scene, take 10 gaussian_train_steps from a perturbed copy and 5
    pose_train_steps from a perturbed pose; the losses must be finite and
    fall, and each kernel must have run at least once per step;
-6. on a small scene, the tiled render (kernels) against the oracle render
+7. on a small scene, the tiled render (kernels) against the oracle render
    (plain PyTorch, O(N*H*W)), image and means gradient.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
@@ -29,6 +37,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -46,15 +55,21 @@ LRS = dict(means=1e-3, quats=1e-3, log_scales=5e-3, sh_dc=2.5e-3,
 POSE_TILE_ARGS = dict(TILE_ARGS, dup_factor=32)
 POSE_LR = 2e-3
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# float32 operations/s outside the tensor cores (an FMA counts as two)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# f32 operations per entry-pixel evaluation, counted from the kernel sources
-# (exp counted as one): forward ~28; backward ~55 per kept entry-pixel plus
-# ~10 adds per entry-pixel for the pixel reduction
-OPS_FWD = 28
-OPS_BWD_KEPT = 55
-OPS_BWD_REDUCE = 10
+# f32 operations counted from the kernel sources, an FMA as two, exp, a
+# reciprocal, a min or a compare as one: forward 26 per entry-pixel
+# evaluation; backward 35 per kept entry-pixel in the replay and 14.5 per
+# entry-pixel slot of a chunk in the moment pass
+OPS_FWD = 26
+OPS_BWD_KEPT = 35
+OPS_BWD_SLOT = 14.5
+# a warp scheduler dispatches one warp-instruction per clock, four per SM
+WARP_INSTR_PER_SM_CLOCK = 4
+# K2's error per entry, as a share of its bwd_scale: about the f32 rounding
+# of a 128-entry replay chain (128 x 2^-24 = 7.6e-6)
+ENTRY_TOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -117,7 +132,8 @@ def kernel_entries(state, cam):
 
 
 def phase_fwd(B, ent, meta, P):
-    """K1 vs its plain version: returns (record, ncon)."""
+    """K1 vs its plain version: returns (record, ncon, t_fin, number of
+    entry-pixel evaluations)."""
     import torch
 
     k = B.blend_fwd(ent, meta, 16, 16)
@@ -147,7 +163,7 @@ def phase_fwd(B, ent, meta, P):
                **bound(nbytes, n_eval * OPS_FWD), library_ms=None)
     print(f"K1: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
           f"{n_eval:.0f} entry-pixel evaluations, {nbytes / 1e6:.1f} MB")
-    return rec, ncon, k[1]
+    return rec, ncon, k[1], n_eval
 
 
 def phase_bwd(B, ent, meta, t_fin, ncon, P, seed):
@@ -159,17 +175,10 @@ def phase_bwd(B, ent, meta, t_fin, ncon, P, seed):
            for s in ((T, P, 3), (T, P), (T, P))]
     k = B.blend_bwd(ent, meta, t_fin, ncon, *cts, 16, 16)
     p = B.blend_bwd_plain(ent, meta, t_fin, ncon, *cts, 16, 16)
-    torch.cuda.synchronize()
-    err = (k - p).abs()
-    col_err = err.amax(dim=(0, 1))
-    col_tol = 1e-4 * p.abs().amax(dim=(0, 1)) + 1e-6
-    print(f"K2 vs plain: max|d| per column {col_err[:10].tolist()}")
-    check(bool((col_err <= col_tol).all()),
-          "K2 per column 1e-4 * max|ref| + 1e-6")
+    scale = bwd_scale(B, ent, meta, t_fin, ncon, *cts, 16, 16)
+    check_bwd(k, p, scale, meta, "K2")
     count = meta[:, :1].long()
-    pad = torch.arange(K, device=ent.device)[None, :] >= count
-    check(not k[pad].any().item(), "K2 exact zeros on rows k >= count")
-    check(not k[..., 10:].any().item(), "K2 exact zeros in columns 10-15")
+    err = (k - p).abs()
 
     ms = cuda_ms(lambda: B.blend_bwd(ent, meta, t_fin, ncon, *cts, 16, 16),
                  20)
@@ -177,17 +186,248 @@ def phase_bwd(B, ent, meta, t_fin, ncon, P, seed):
         lambda: B.blend_bwd_plain(ent, meta, t_fin, ncon, *cts, 16, 16), 3)
     last = torch.minimum(ncon.amax(dim=1), count[:, 0].float())
     n_kept = ncon.sum().item()
-    n_reduce = last.sum().item() * P
+    n_slot = last.sum().item() * P
     nbytes = last.sum().item() * 64 + T * 16 + T * P * 7 * 4 + T * K * 64
     rec = dict(name="blend_bwd", route="cuda",
                source="ht3dgs_torch/csrc/blend_bwd.cu",
                replaces="ht3dgs/raster/pallas_blend.py:291",
                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                **bound(nbytes, n_kept * OPS_BWD_KEPT
-                       + n_reduce * OPS_BWD_REDUCE), library_ms=None)
+                       + n_slot * OPS_BWD_SLOT), library_ms=None)
     print(f"K2: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
-          f"{n_kept:.0f} kept entry-pixels, {nbytes / 1e6:.1f} MB")
-    return rec
+          f"{n_kept:.0f} kept entry-pixels, {n_slot:.0f} entry-pixel slots, "
+          f"{nbytes / 1e6:.1f} MB")
+    return rec, n_kept, n_slot
+
+
+def bwd_scale(B, ent, meta, t_fin, ncon, d_rgb, d_t, d_depth, tile_h: int,
+              tile_w: int):
+    """Per entry and gradient column [T, K, 10], the size of what K2 sums:
+    blend_bwd_plain's replay with every summand, and each term of d_alpha, by
+    its absolute value, and the geometric columns in the moment form's terms
+    (|u| + |mxl| in place of |dx| = |u - mxl|, u the pixel's tile-local
+    offset, mxl the entry centre's). Rounding in any order of summation, the
+    moment form's cancellation included, is a small multiple of f32 epsilon
+    times this; it is at least the entry's |plain value|."""
+    import torch
+
+    T, K, _ = ent.shape
+    P = tile_h * tile_w
+    px, py = B._tile_pix(meta, tile_w, P)
+    ox, oy = meta[:, 1:2].float(), meta[:, 2:3].float()
+    au, av = (px - ox).abs(), (py - oy).abs()
+    nc = torch.minimum(ncon, meta[:, 0:1].clamp(max=K).float())
+    trans = t_fin
+    tail = (t_fin * d_t).abs()
+    da = [x.abs() for x in (d_rgb[..., 0], d_rgb[..., 1], d_rgb[..., 2],
+                            d_depth)]
+    suffix = torch.zeros_like(t_fin)
+    scale = torch.zeros(T, K, B.N_GRAD, device=ent.device)
+
+    def psum(x):
+        return x.sum(dim=1, keepdim=True)
+
+    for k in range(int(nc.max()) - 1, -1, -1):
+        e = ent[:, k]
+        _, _, ex, raw, alpha, gate = B._entry_alpha(e, px, py)
+        kept = k < nc
+        alpha = torch.where(kept, alpha, 0.0)
+        one_minus = 1.0 - alpha
+        t_before = torch.where(kept, trans / one_minus, trans)
+        w = alpha * t_before
+        adot = sum(e[:, i:i + 1].abs() * d for i, d in zip((5, 6, 7, 9), da))
+        on = kept & gate & (raw < B.ALPHA_MAX)
+        d_alpha = torch.where(
+            on, t_before * adot + (suffix + tail) / one_minus, 0.0)
+        suffix = torch.where(kept, suffix + w * adot, suffix)
+        trans = t_before
+        dp = d_alpha * raw
+        ax = au + (e[:, 0:1] - ox).abs()
+        ay = av + (e[:, 1:2] - oy).abs()
+        ca, cb, cc = (e[:, i:i + 1].abs() for i in (2, 3, 4))
+        sx, sy = psum(dp * ax), psum(dp * ay)
+        scale[:, k] = torch.cat([
+            ca * sx + cb * sy, cc * sy + cb * sx, 0.5 * psum(dp * ax * ax),
+            psum(dp * ax * ay), 0.5 * psum(dp * ay * ay),
+            *(psum(w * d) for d in da[:3]), psum(d_alpha * ex),
+            psum(w * da[3])], dim=1)
+    return scale
+
+
+def check_bwd(got, ref, scale, meta, what: str) -> None:
+    """K2's d_ent against the plain version's: per column within 1e-4 of the
+    column's largest |ref| + 1e-6; per entry within ENTRY_TOL of its own
+    scale (bwd_scale); exact zeros on rows k >= count and in columns
+    10-15."""
+    import torch
+
+    n = scale.shape[-1]
+    err = (got - ref).abs()[..., :n]
+    ref = ref[..., :n].abs()
+    col_err = err.amax(dim=(0, 1))
+    col_tol = 1e-4 * ref.amax(dim=(0, 1)) + 1e-6
+    ratio = torch.where(scale > 0, err / scale,
+                        torch.where(err > 0, float("inf"), 0.0))
+    col_ratio = ratio.amax(dim=(0, 1))
+    med_ref, rel = [], []   # over the entries with ref != 0
+    for c in range(n):
+        nz = ref[..., c] > 0
+        r = ref[..., c][nz]
+        med_ref.append(r.median().item() if r.numel() else 0.0)
+        q = torch.tensor([0.5, 0.99], device=r.device)
+        rel.append((err[..., c][nz] / r).quantile(q).tolist()
+                   if r.numel() else [0.0, 0.0])
+
+    def fmt(xs):
+        return [float(f"{x:.3g}") for x in xs]
+
+    print(f"{what} vs plain, per column: max|d| {fmt(col_err.tolist())}; "
+          f"limit 1e-4 max|ref| + 1e-6 {fmt(col_tol.tolist())}; "
+          f"median |ref| {fmt(med_ref)}; |d| / |ref| at the 50th and 99th "
+          f"percentile {[fmt(x) for x in rel]}; max over entries of "
+          f"|d| / scale {fmt(col_ratio.tolist())} (limit {ENTRY_TOL})")
+    check(bool((col_err <= col_tol).all()),
+          f"{what} per column 1e-4 * max|ref| + 1e-6")
+    check(bool((col_ratio <= ENTRY_TOL).all()),
+          f"{what} per entry {ENTRY_TOL} * its scale")
+    pad = (torch.arange(got.shape[1], device=got.device)[None, :]
+           >= meta[:, :1])
+    check(not got[pad].any().item(), f"{what} exact zeros on rows k >= count")
+    check(not got[..., n:].any().item(),
+          f"{what} exact zeros in columns 10-15")
+
+
+def sass_loops(text: str, kernel: str) -> dict:
+    """Instruction counts of a kernel's entry loops, from `cuobjdump -sass`.
+
+    Takes the function whose name holds `kernel` (the 16x16 instance where
+    the kernel is a template). A loop is the span from a backward branch's
+    target address to the branch. `inner` is the smallest loop that holds
+    an exp (MUFU.EX2, one per entry-pixel evaluation), `outer` the smallest
+    loop around it. Returns the instruction counts of both and the exps in
+    `inner`."""
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    funcs = [f for f in funcs if kernel in f.split("\n", 1)[0]]
+    funcs = ([f for f in funcs if "Li16ELi16E" in f.split("\n", 1)[0]]
+             or funcs)
+    if len(funcs) != 1:
+        raise RuntimeError(f"SASS: {len(funcs)} functions match {kernel}")
+    insns = [(int(a, 16), op.strip()) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", funcs[0])]
+    loops = []
+    for addr, op in insns:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", op)
+        if m and int(m.group(1), 16) <= addr:
+            body = [o for a, o in insns if int(m.group(1), 16) <= a <= addr
+                    and not o.startswith("NOP")]
+            loops.append((int(m.group(1), 16), addr, len(body),
+                          sum("MUFU.EX2" in o for o in body)))
+    inner = min((lp for lp in loops if lp[3]), key=lambda lp: lp[2])
+    outer = [lp for lp in loops if lp[0] <= inner[0] and lp[1] >= inner[1]
+             and lp != inner]
+    outer = min(outer, key=lambda lp: lp[2]) if outer else None
+    return dict(inner=inner[2], exps=inner[3],
+                outer=outer[2] if outer else None)
+
+
+def sass_per_eval(text: str, chunk: int) -> dict:
+    """{kernel: SASS instructions per entry-pixel evaluation} of a build's
+    listings. K1: its entry loop over the exps in it (one per pixel).
+    K2: the replay loop per kept evaluation ("blend_bwd_kernel"), and the
+    rest of the chunk loop, the moment pass above all, per entry-pixel slot
+    ("blend_bwd_kernel/slot": a thread takes `chunk` slots a chunk)."""
+    out = {}
+    for name in ("blend_fwd_kernel", "blend_bwd_kernel"):
+        if name not in text:
+            continue
+        lp = sass_loops(text, name)
+        out[name] = lp["inner"] / lp["exps"]
+        print(f"sass [{name}] entry loop {lp['inner']} instructions, "
+              f"{lp['exps']} exp; enclosing loop {lp['outer']}")
+        if name == "blend_bwd_kernel" and lp["outer"]:
+            out[name + "/slot"] = (lp["outer"] - lp["inner"]) / chunk
+    return out
+
+
+def instr_floor_ms(instr: float, clock_mhz: float, n_sm: int) -> float:
+    """Least time to dispatch `instr` thread-instructions: 32 lanes a warp,
+    WARP_INSTR_PER_SM_CLOCK warp-instructions per SM and clock."""
+    return instr / 32 / (WARP_INSTR_PER_SM_CLOCK * n_sm * clock_mhz * 1e6) * 1e3
+
+
+def ragged_entries(seed: int, tile_h: int, tile_w: int, C: int,
+                   K: int = 128):
+    """Synthetic ent [T, K, 16] / meta [T, 4] and cotangents, from numpy.
+
+    Per-tile counts sit at the kernels' chunk edges C (0, 1, C - 1, C, C + 1,
+    K - 1, K and one above K, which the kernels clamp), each on a few tiles
+    at random origins of a 1080p frame, one of them the last tile
+    (1904, 1072). Rows past a tile's count, and columns 10-15, hold finite
+    garbage the kernels must ignore. The last tile's first two entries are
+    opaque and cover it, so every pixel stops at entry 1, the earliest a
+    pixel can stop (alpha <= 0.99 keeps entry 0)."""
+    rng = np.random.default_rng(seed + 3)
+    counts = [0, 1, C - 1, C, C + 1, K - 1, K, K + 5] * 3 + [K]
+    T, P = len(counts), tile_h * tile_w
+    ox = tile_w * rng.integers(0, 1920 // tile_w, T)
+    oy = tile_h * rng.integers(0, 1080 // tile_h, T)
+    ox[-2], oy[-2] = 1920 - tile_w, 1080 - tile_h
+    mx = ox[:, None] + rng.uniform(-2 * tile_w, 3 * tile_w, (T, K))
+    my = oy[:, None] + rng.uniform(-2 * tile_h, 3 * tile_h, (T, K))
+    # conics of covariances with sigmas 1-20 px at random angles
+    sx, sy = rng.uniform(1.0, 20.0, (2, T, K))
+    th = rng.uniform(0.0, np.pi, (T, K))
+    cs, sn = np.cos(th), np.sin(th)
+    a = cs * cs * sx * sx + sn * sn * sy * sy
+    b = cs * sn * (sx * sx - sy * sy)
+    c = sn * sn * sx * sx + cs * cs * sy * sy
+    det = a * c - b * b
+    ent = rng.standard_normal((T, K, 16))
+    ent[..., 0], ent[..., 1] = mx, my
+    ent[..., 2], ent[..., 3], ent[..., 4] = c / det, -b / det, a / det
+    ent[..., 5:8] = rng.random((T, K, 3))
+    ent[..., 8] = rng.uniform(0.05, 0.99, (T, K))
+    ent[..., 9] = rng.uniform(0.5, 10.0, (T, K))
+    stop = ent[-1, :2]
+    stop[:, 0], stop[:, 1] = ox[-1] + tile_w / 2, oy[-1] + tile_h / 2
+    stop[:, 2], stop[:, 3], stop[:, 4], stop[:, 8] = 1e-5, 0.0, 1e-5, 1.0
+    meta = np.stack([np.array(counts), ox, oy, np.zeros(T, np.int64)], 1)
+    cts = [rng.standard_normal(sh).astype(np.float32) / P
+           for sh in ((T, P, 3), (T, P), (T, P))]
+    return ent.astype(np.float32), meta.astype(np.int32), cts
+
+
+def phase_ragged(B, device, seed: int, chunk: int) -> None:
+    """Both kernels against their plain versions on ragged_entries, for
+    every tile shape the kernels are built for."""
+    import torch
+
+    for th, tw in B.KERNEL_TILES:
+        ent, meta, cts = ragged_entries(seed, th, tw, chunk)
+        ent, meta = (torch.from_numpy(x).to(device) for x in (ent, meta))
+        cts = [torch.from_numpy(x).to(device) for x in cts]
+        k = B.blend_fwd(ent, meta, th, tw)
+        p = B.blend_fwd_plain(ent, meta, th, tw)
+        errs = [(a - b).abs().max().item() for a, b in zip(k[:3], p[:3])]
+        count = meta[:, :1].float()
+        ncon_k, ncon_p = (torch.minimum(x[3], count) for x in (k, p))
+        check(errs[0] <= 3e-5 and errs[1] <= 3e-5, f"ragged {th}x{tw}: K1 "
+              "image 3e-5")
+        check(errs[2] <= 3e-4, f"ragged {th}x{tw}: K1 depth 3e-4")
+        check(torch.equal(ncon_k, ncon_p),
+              f"ragged {th}x{tw}: K1 min(ncon, count) equal")
+        check(bool((ncon_k[-1] == 1).all()),
+              f"ragged {th}x{tw}: every pixel of the last tile stops at 1")
+        d1 = B.blend_bwd(ent, meta, k[1], k[3], *cts, th, tw)
+        d2 = B.blend_bwd(ent, meta, k[1], k[3], *cts, th, tw)
+        dp = B.blend_bwd_plain(ent, meta, k[1], k[3], *cts, th, tw)
+        print(f"ragged {th}x{tw}: counts {sorted(set(meta[:, 0].tolist()))},"
+              f" K1 max|d| {errs}")
+        check_bwd(d1, dp, bwd_scale(B, ent, meta, k[1], k[3], *cts, th, tw),
+                  meta, f"ragged {th}x{tw}: K2")
+        check(torch.equal(d1, d2), f"ragged {th}x{tw}: K2 bitwise "
+              "deterministic")
+        print(f"ragged {th}x{tw}: two K2 calls equal")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -349,6 +589,11 @@ def main() -> None:
             if any(s in line for s in ("registers", "spill", "smem")):
                 print(f"ptxas [{name}] {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    # entry rows per chunk, from the build (blend_common.cuh)
+    chunk = kernels.load("blend_bwd").ht3dgs_blend_chunk()
+    per_eval = {}
+    for name in kernels.SOURCES:
+        per_eval.update(sass_per_eval(kernels.sass(name), chunk))
 
     # 2. scene
     t0 = time.perf_counter()
@@ -362,11 +607,15 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
     # 3-4. kernels vs plain versions
-    rec_fwd, ncon, t_fin = phase_fwd(B, ent, meta, P)
-    rec_bwd = phase_bwd(B, ent, meta, t_fin, ncon, P, args.seed)
+    rec_fwd, ncon, t_fin, n_eval = phase_fwd(B, ent, meta, P)
+    rec_bwd, n_kept, n_slot = phase_bwd(B, ent, meta, t_fin, ncon, P,
+                                        args.seed)
     del ent, meta, ncon, t_fin
 
-    # 5. main path
+    # 5. ragged edges
+    phase_ragged(B, device, args.seed, chunk)
+
+    # 6. main path
     B.blend_fwd.launches = 0
     B.blend_bwd.launches = 0
     losses, pose_losses, step_ms, drops, trained = main_path(
@@ -386,7 +635,7 @@ def main() -> None:
     rec_fwd["launches"] = launches["blend_fwd"]
     rec_bwd["launches"] = launches["blend_bwd"]
 
-    # 6. small scene against the oracle
+    # 7. small scene against the oracle
     small_reference(device, args.seed)
     if args.profile:
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
@@ -398,6 +647,21 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     gpu = smi.splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    floors = {
+        "blend_fwd": instr_floor_ms(
+            n_eval * per_eval["blend_fwd_kernel"], clock_mhz, n_sm),
+        "blend_bwd": instr_floor_ms(
+            n_kept * per_eval["blend_bwd_kernel"]
+            + n_slot * per_eval["blend_bwd_kernel/slot"], clock_mhz, n_sm)}
+    print(f"instruction floor (SASS instructions / ({WARP_INSTR_PER_SM_CLOCK} per SM and "
+          f"clock x {n_sm} SMs x {clock_mhz:.0f} MHz max SM clock)): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
+          + f"; instructions per evaluation {per_eval}")
     print(f"step: median {step_ms:.2f} ms, {H * W / 1e6 / (step_ms / 1e3):.3f}"
           f" MP/s fwd+bwd+Adam ({N} Gaussians, {W}x{H}; {gpu})")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

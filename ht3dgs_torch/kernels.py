@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-Each source is compiled by `nvcc` for sm_90a into its own shared library with
-a plain C interface, loaded with ctypes. Libraries go into `_build/` next to
-this file, named by a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is built once. Nothing is built when the module
-is imported: `load` builds at first use, and `build` starts one `nvcc` per
-source at once.
+Each source is compiled by `nvcc` for sm_90a, with its own flags, into its
+own shared library with a plain C interface, loaded with ctypes. Libraries go
+into `_build/` next to this file, named by a hash of the source, the headers
+of `csrc/` and the flags, so an edited source is rebuilt and an unchanged one
+is built once. Nothing is built when the module is imported: `load` builds at
+first use, and `build` starts one `nvcc` per source at once.
 """
 
 from __future__ import annotations
@@ -22,35 +22,45 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("blend_fwd", "blend_bwd")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# blend_fwd's termination test must round as the plain version's separate
+# multiplies and adds, so it contracts nothing; blend_bwd keeps its gate
+# uncontracted with _rn intrinsics and may contract the rest (source notes)
+NVCC_FLAGS = {
+    "blend_fwd": _COMMON_FLAGS + ("-fmad=false",),
+    "blend_bwd": _COMMON_FLAGS,
+}
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "blend_fwd": {
         "ht3dgs_blend_fwd": ([_p] * 6 + [_i] * 4 + [_p], ctypes.c_int),
+        "ht3dgs_blend_chunk": ([], ctypes.c_int),
     },
     "blend_bwd": {
         "ht3dgs_blend_bwd": ([_p] * 8 + [_i] * 4 + [_p], ctypes.c_int),
+        "ht3dgs_blend_chunk": ([], ctypes.c_int),
     },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _cuda_tool(tool: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(cuda_home, "bin", tool), shutil.which(tool)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{tool} not found (set CUDA_HOME or put it on PATH)")
 
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -65,7 +75,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS[name], "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -94,3 +105,12 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def sass(name: str) -> str:
+    """`cuobjdump -sass` of the built library of csrc/<name>.cu."""
+    path = _lib_path(name)
+    if not path.exists():
+        build([name])
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout

@@ -138,12 +138,23 @@ def _check(name, t, shape, dtype):
     return t.contiguous()
 
 
-def _tile_threads(tile_h: int, tile_w: int) -> int:
-    P = tile_h * tile_w
-    if P % 32 or P > 1024:
-        raise ValueError(f"tile {tile_h}x{tile_w}: the kernels need a pixel "
-                         "count that is a multiple of 32 and at most 1024")
-    return P
+# tile shapes the kernels are compiled for (csrc/*.cu)
+KERNEL_TILES = ((16, 16), (8, 16))
+
+
+def _tile_pixels(tile_h: int, tile_w: int) -> int:
+    if (tile_h, tile_w) not in KERNEL_TILES:
+        raise ValueError(f"tile {tile_h}x{tile_w}: the kernels are built for "
+                         f"tiles (h, w) in {KERNEL_TILES}")
+    return tile_h * tile_w
+
+
+def _check_ent(ent):
+    ent = _check("ent", ent, (*ent.shape[:2], ATTRS), torch.float32)
+    if ent.data_ptr() % 16:
+        raise ValueError("ent: the kernels read rows as 16-byte vectors and "
+                         "need a 16-byte aligned tensor")
+    return ent
 
 
 def blend_fwd(ent: torch.Tensor, meta: torch.Tensor, tile_h: int,
@@ -152,8 +163,8 @@ def blend_fwd(ent: torch.Tensor, meta: torch.Tensor, tile_h: int,
     if ent.device.type == "cpu":
         return blend_fwd_plain(ent, meta, tile_h, tile_w)
     T, K, _ = ent.shape
-    P = _tile_threads(tile_h, tile_w)
-    ent = _check("ent", ent, (T, K, ATTRS), torch.float32)
+    P = _tile_pixels(tile_h, tile_w)
+    ent = _check_ent(ent)
     meta = _check("meta", meta, (T, 4), torch.int32)
     rgb = torch.empty(T, P, 3, device=ent.device)
     t_fin, dep, ncon = (torch.empty(T, P, device=ent.device)
@@ -179,9 +190,9 @@ def blend_bwd(ent, meta, t_fin, ncon, d_rgb, d_t, d_depth, tile_h: int,
         return blend_bwd_plain(ent, meta, t_fin, ncon, d_rgb, d_t, d_depth,
                                tile_h, tile_w)
     T, K, _ = ent.shape
-    P = _tile_threads(tile_h, tile_w)
+    P = _tile_pixels(tile_h, tile_w)
     f32 = torch.float32
-    ent = _check("ent", ent, (T, K, ATTRS), f32)
+    ent = _check_ent(ent)
     meta = _check("meta", meta, (T, 4), torch.int32)
     t_fin, ncon, d_t, d_depth = (_check(n, x, (T, P), f32) for n, x in (
         ("t_fin", t_fin), ("ncon", ncon), ("d_t", d_t), ("d_depth", d_depth)))

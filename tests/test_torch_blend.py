@@ -55,15 +55,19 @@ def _entries(n=96, h=32, w=48, K=128, seed=0):
     return ent, np.asarray(meta), cts
 
 
-@pytest.fixture(scope="module")
-def case():
-    ent, meta, cts = _entries()
+def _torch_blend(ent, meta, cts):
+    """The port's plain forward and backward on numpy inputs."""
     te, tm = torch.tensor(ent), torch.tensor(meta)
     rgb, t_fin, dep, ncon = tb.blend_fwd(te, tm, TILE, TILE)
     d_ent = tb.blend_bwd(te, tm, t_fin, ncon,
                          *map(torch.tensor, cts), TILE, TILE)
     return dict(ent=ent, meta=meta, cts=cts, rgb=rgb, t_fin=t_fin, dep=dep,
                 ncon=ncon, d_ent=d_ent)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _torch_blend(*_entries())
 
 
 def _jax_blend(ref, ent, meta, cts):
@@ -84,10 +88,24 @@ def _jax_blend(ref, ent, meta, cts):
     return (*out, ncon, d_ent)
 
 
-@pytest.mark.parametrize("ref", ["xla", "pallas"])
-def test_plain_blend_matches_jax(case, ref):
+# the last 1080p tile's origin: the Pallas backward takes its gradient sums
+# as pixel moments in tile-local coordinates (the form kernel K2 uses),
+# blend_bwd_plain sums per pixel in image coordinates
+FAR = (1904, 1072)
+
+
+@pytest.mark.parametrize("ref, shift", [("xla", None), ("pallas", None),
+                                        ("pallas", FAR)],
+                         ids=["xla", "pallas", "pallas-far"])
+def test_plain_blend_matches_jax(case, ref, shift):
     """Forward: image 3e-5, depth 3e-4, min(ncon, count) exact. Backward:
-    d_ent 1e-5 abs on rows k < count, exact zeros elsewhere."""
+    d_ent 1e-5 abs on rows k < count, exact zeros elsewhere. With a shift,
+    tile origins and entry centres move by it."""
+    if shift is not None:
+        ent, meta = case["ent"].copy(), case["meta"].copy()
+        ent[:, :, 0:2] += np.asarray(shift, np.float32)
+        meta[:, 1:3] += np.asarray(shift, np.int32)
+        case = _torch_blend(ent, meta, case["cts"])
     rgb, t_fin, dep, ncon, d_ent = _jax_blend(
         ref, jnp.asarray(case["ent"]), jnp.asarray(case["meta"]),
         case["cts"])
@@ -111,7 +129,8 @@ def test_plain_blend_matches_jax(case, ref):
 
 
 def test_blend_autograd_function(case):
-    """`blend` differentiates through the plain backward on the CPU."""
+    """`blend` differentiates through the plain backward on the CPU; the
+    kernel wrappers refuse what the kernels do not take."""
     te = torch.tensor(case["ent"], requires_grad=True)
     out = tb.blend(te, torch.tensor(case["meta"]), TILE, TILE)
     (g,) = torch.autograd.grad(
@@ -120,3 +139,5 @@ def test_blend_autograd_function(case):
     with pytest.raises(ValueError, match="CUDA"):
         tb.blend_fwd(te.detach().to("meta"), torch.tensor(case["meta"]),
                      TILE, TILE)
+    with pytest.raises(ValueError, match="built for"):
+        tb.blend_bwd(te.detach().to("meta"), *[None] * 6, 4, 4)
