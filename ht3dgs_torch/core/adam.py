@@ -83,6 +83,8 @@ def expon_lr(step: float, lr_init: float, lr_final: float, max_steps: int,
             0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
     else:
         delay = 1.0
-    t = min(max(step / max_steps, 0.0), 1.0)
+    # max_steps 0 (a run shorter than 10 frames): JAX's step / 0 = inf
+    # clips to the final rate
+    t = min(max(step / max_steps, 0.0), 1.0) if max_steps > 0 else 1.0
     return delay * math.exp(math.log(lr_init) * (1.0 - t)
                             + math.log(lr_final) * t)

@@ -17,6 +17,10 @@ ZNEAR = 0.01
 ZFAR = 100.0
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * float(np.arctan(pixels / (2.0 * focal)))
+
+
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * float(np.tan(fov / 2.0)))
 

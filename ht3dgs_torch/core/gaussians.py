@@ -45,6 +45,9 @@ class GaussianState:
     def device(self) -> torch.device:
         return self.means.device
 
+    def n_live(self) -> torch.Tensor:
+        return self.live.sum()
+
     def params(self) -> Dict[str, torch.Tensor]:
         return {f: getattr(self, f) for f in PARAM_FIELDS}
 

@@ -13,6 +13,7 @@ as `jnp.where` does, so every denominator is made safe BEFORE the `where`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -36,7 +37,7 @@ def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -61,6 +62,32 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> unit quaternion [x, y, z, w] with
+    w >= 0: the Shepperd row of the largest diagonal score, chosen without
+    data-dependent control flow."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    # one candidate per dominant component, each [w, x, y, z]
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    cand = torch.stack([qw, qx, qy, qz], dim=-2)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q_wxyz = quat_normalize(torch.gather(cand, -2, idx)[..., 0, :])
+    q = torch.cat([q_wxyz[..., 1:4], q_wxyz[..., 0:1]], dim=-1)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
 
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
@@ -166,3 +193,39 @@ def se3_log(pose: torch.Tensor) -> torch.Tensor:
 def se3_retr(delta: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """Left retraction exp(delta) ∘ base."""
     return se3_mul(se3_exp(delta), base)
+
+
+def se3_identity(batch_shape=(), dtype=torch.float32,
+                 device="cuda") -> torch.Tensor:
+    ident = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
+                         device=device)
+    return ident.expand(tuple(batch_shape) + (7,))
+
+
+def se3_to_matrix(pose: torch.Tensor) -> torch.Tensor:
+    """SE(3) 7-vector -> homogeneous [..., 4, 4]."""
+    R = quat_to_matrix(quat_normalize(pose[..., 3:7]))
+    top = torch.cat([R, pose[..., :3, None]], dim=-1)
+    bottom = pose.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
+        pose.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(T: torch.Tensor) -> torch.Tensor:
+    return torch.cat([T[..., :3, 3], matrix_to_quat(T[..., :3, :3])], dim=-1)
+
+
+def se3_interp(pose0: torch.Tensor, pose1: torch.Tensor,
+               alpha) -> torch.Tensor:
+    """Geodesic interpolation pose0 ∘ exp(alpha * log(pose0⁻¹ ∘ pose1))."""
+    rel = se3_mul(se3_inv(pose0), pose1)
+    return se3_mul(pose0, se3_exp(se3_log(rel) * alpha))
+
+
+def se3_from_Rt(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Numpy convenience: world2cam R (3,3), t (3,) -> 7-vector."""
+    T = np.eye(4, dtype=np.float64)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    pose = se3_from_matrix(torch.from_numpy(T.astype(np.float32)))
+    return pose.numpy().astype(np.float32)

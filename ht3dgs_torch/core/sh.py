@@ -68,3 +68,7 @@ def sh_degree_mask(active_deg, max_deg: int, device=None) -> torch.Tensor:
 
 def rgb2sh(rgb):
     return (rgb - 0.5) / C0
+
+
+def sh2rgb(sh):
+    return sh * C0 + 0.5

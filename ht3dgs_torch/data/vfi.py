@@ -1,0 +1,60 @@
+"""Video-frame-interpolation (VFI) providers for multi-source supervision,
+counterpart of `ht3dgs.data.vfi`:
+
+- "blend": 0.5 (a + b), a dependency-free stand-in for a VFI network;
+- "precomputed": `{dir}/{i}_to_{i+1}.{png,jpg,npy}` midway frames (PIL only
+  for the images);
+- "none": no VFI;
+- "ifrnet": not ported yet (ROADMAP, P11).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+
+class VFIProvider:
+    def __call__(self, img0: np.ndarray, img1: np.ndarray,
+                 pair_name: str) -> np.ndarray:
+        """img0/img1: [H, W, 3] float32 -> midway frame [H, W, 3]."""
+        raise NotImplementedError
+
+
+class BlendVFI(VFIProvider):
+    def __call__(self, img0, img1, pair_name):
+        return 0.5 * (img0 + img1)
+
+
+class PrecomputedVFI(VFIProvider):
+    def __init__(self, directory: str):
+        self.dir = directory
+
+    def __call__(self, img0, img1, pair_name):
+        from PIL import Image
+
+        for ext in (".png", ".jpg", ".npy"):
+            p = os.path.join(self.dir, pair_name + ext)
+            if os.path.exists(p):
+                if ext == ".npy":
+                    return np.load(p).astype(np.float32)
+                return np.asarray(Image.open(p).convert("RGB"),
+                                  np.float32) / 255.0
+        raise FileNotFoundError(
+            f"no precomputed VFI frame {pair_name} under {self.dir}")
+
+
+def make_vfi_provider(kind: str, **kw) -> Optional[VFIProvider]:
+    if kind in ("none", ""):
+        return None
+    if kind == "blend":
+        return BlendVFI()
+    if kind == "precomputed":
+        return PrecomputedVFI(**kw)
+    if kind == "ifrnet":
+        raise NotImplementedError(
+            "the IFRNet VFI provider is not ported yet (ROADMAP P11); use "
+            "'blend' or 'precomputed'")
+    raise ValueError(f"unknown VFI provider {kind}")

@@ -62,9 +62,11 @@ def render(state: GaussianState, camera: Camera,
         proj = proj._replace(colors=torch.clamp(state.sh_dc[:, 0, :],
                                                 min=0.0))
     if means2d_probe is not None:
-        scale = torch.tensor([0.5 * camera.width, 0.5 * camera.height],
-                             device=dev)
-        proj = proj._replace(means2d=proj.means2d + means2d_probe * scale)
+        # column by column with host scalars: no copy to the device
+        offset = torch.stack([means2d_probe[:, 0] * (0.5 * camera.width),
+                              means2d_probe[:, 1] * (0.5 * camera.height)],
+                             dim=-1)
+        proj = proj._replace(means2d=proj.means2d + offset)
 
     if mode == "auto":
         big = (state.capacity >= 8192

@@ -21,6 +21,8 @@ def rasterize_oracle(proj: Projected, height: int, width: int,
     """Returns image [H,W,3], depth [H,W], alpha [H,W]."""
     dev = proj.means2d.device
     order = torch.argsort(proj.depths, stable=True)   # invalid (+inf) last
+    # invalid rows add nothing (alpha 0): composite the valid ones only
+    order = order[:int(proj.valid.sum())]
     depth_col = torch.where(torch.isfinite(proj.depths), proj.depths, 0.0)
     py, px = torch.meshgrid(torch.arange(height, device=dev).float(),
                             torch.arange(width, device=dev).float(),

@@ -12,6 +12,7 @@ matrix products are full precision already
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,6 +24,13 @@ def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     xs = np.arange(window_size) - window_size // 2
     g = np.exp(-(xs ** 2) / (2.0 * sigma ** 2))
     return (g / g.sum()).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _window(window_size: int, device: torch.device) -> torch.Tensor:
+    """The blur window on `device`, made once: a copy from host memory
+    synchronises the stream."""
+    return torch.as_tensor(_gaussian_window(window_size), device=device)
 
 
 def _depthwise_blur(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
@@ -40,7 +48,7 @@ def _depthwise_blur(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
     """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5)."""
-    w = torch.as_tensor(_gaussian_window(window_size), device=img1.device)
+    w = _window(window_size, img1.device)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):

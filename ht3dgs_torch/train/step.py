@@ -129,3 +129,9 @@ def render_eval(state: GaussianState, camera: Camera,
                 pose: Optional[torch.Tensor] = None, *, mode: str = "auto",
                 tile_args: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     return render(state, camera, pose=pose, mode=mode, tile_args=tile_args)
+
+
+# the compaction ops under the names the trainer calls (nothing to compile)
+densify_and_prune = densify_lib.densify_and_prune
+reset_opacity = densify_lib.reset_opacity
+jit_importance_prune = densify_lib.importance_prune

@@ -1,0 +1,36 @@
+"""Phase timing: named-phase wall time and counts that the trainer logs at
+the end of a run. Counterpart of `ht3dgs.utils.profiling.PhaseTimer`."""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from collections import defaultdict
+from typing import Dict
+
+
+class PhaseTimer:
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self) -> Dict[str, dict]:
+        return {
+            k: {"total_s": round(v, 3), "count": self.counts[k],
+                "mean_ms": round(1000 * v / max(self.counts[k], 1), 2)}
+            for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])
+        }
+
+    def dump(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.summary(), f, indent=2)

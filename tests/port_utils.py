@@ -1,12 +1,31 @@
 """Shared helpers of the tests that hold `ht3dgs_torch` against `ht3dgs`:
 both packages get the same numpy inputs."""
 
+import os
+
 import numpy as np
+import pytest
 
 from ht3dgs.core import gaussians as G
 
 STATE_FIELDS = G.PARAM_FIELDS + ("live", "max_radii2d", "grad_accum",
                                  "grad_denom", "active_sh_degree")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_per_worker():
+    """Share torch's CPU threads among the test processes that pytest-xdist
+    runs at once (a module opts in by importing this fixture). A pool of one
+    thread per core in each of them makes the thousands of small ops of a
+    training loop stall on each other's threads, many times slower than
+    their share of the cores would run them."""
+    import torch
+
+    n = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, n // workers))
+    yield
+    torch.set_num_threads(n)
 
 
 def state_arrays(state, **overrides):

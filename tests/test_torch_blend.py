@@ -24,6 +24,8 @@ from ht3dgs.raster.projection import project  # noqa: E402
 from ht3dgs.raster.tiled import build_tile_lists  # noqa: E402
 from ht3dgs_torch.raster import blend as tb  # noqa: E402
 
+from port_utils import torch_threads_per_worker  # noqa: E402,F401
+
 TILE = 16
 P = TILE * TILE
 

@@ -20,6 +20,8 @@ from ht3dgs_torch.core import gaussians as t_g  # noqa: E402
 from ht3dgs_torch.core import se3 as t_se3  # noqa: E402
 from ht3dgs_torch.core import sh as t_sh  # noqa: E402
 
+from port_utils import torch_threads_per_worker  # noqa: E402,F401
+
 
 def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else \

@@ -28,6 +28,7 @@ from ht3dgs_torch.core import adam as t_adam  # noqa: E402
 from ht3dgs_torch.train import step as t_step  # noqa: E402
 
 from port_utils import camera_arrays, jax_state, rich_scene  # noqa: E402
+from port_utils import torch_threads_per_worker  # noqa: E402,F401
 
 H, W = 48, 64
 TILE_ARGS = dict(tile_h=16, tile_w=16, max_per_tile=128, dup_factor=8)

@@ -19,6 +19,7 @@ from ht3dgs_torch.raster import render as t_render  # noqa: E402
 from ht3dgs_torch.raster import tiled as t_tiled  # noqa: E402
 
 from port_utils import camera_arrays, jax_state, rich_scene  # noqa: E402
+from port_utils import torch_threads_per_worker  # noqa: E402,F401
 
 
 def _scene(n=160, h=48, w=64, seed=0):
