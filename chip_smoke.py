@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive ht3dgs_torch's training step and hierarchical trainer on one
-NVIDIA card and check them.
+"""Drive ht3dgs_torch's training step, hierarchical trainer, eval modes,
+viewer bridge and networks on one NVIDIA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--profile PATH]
 
@@ -37,7 +37,19 @@ Phases (any failure exits non-zero):
    and 2, the eval sweep and the checkpoint. Checks: finite relative poses
    within 3 degrees of the truth, the root covering every frame, train-view
    PSNR above 18 dB, model.npz reloading to a bit-equal render, and each
-   kernel launched at least once per step in every trainer phase.
+   kernel launched at least once per step in every trainer phase;
+9. the eval path on phase 8's root, with every launch count at 0 first:
+   eval_pose (ATE/RPE equal to phase 8's to 1e-6), eval_nvs (16 frames x
+   eval_nvs_epochs test-time pose steps, mean PSNR above 18 dB, K1 and K2
+   once per pose step), render_nvs (120 PNGs, each the render it holds,
+   finite and not constant), the SIBR viewer bridge on a loopback port (4
+   requests at 256x192 and 4 at 1920x1080, each reply byte for byte the
+   uint8 of render_eval at the same camera) and a PLY round trip that
+   renders frame 0 bit for bit; then the host share of one pose step;
+10. IFRNet and LPIPS with seeded random weights: the card (float32, no
+   TF32) against the CPU on a 256x192 pair (IFRNet max |d| <= 1e-4, LPIPS
+   relative <= 1e-5), then the median ms, peak memory and kernel launches
+   at 1920x1080 (IFRNet also on cuDNN's convolutions, for comparison).
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -52,6 +64,7 @@ import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -674,12 +687,11 @@ class StepCounter:
         return fn
 
 
-def phase_hierarchy(B, device, seed: int):
+def phase_hierarchy(B, device, seed: int, workdir: str):
     """Phase 8: HTGaussianTrainer.hierarchical_training on the full tier's
-    synthetic scene, frames and depths in memory; returns the launches of
-    each kernel in the phase."""
-    import tempfile
-
+    synthetic scene, frames and depths in memory, writing under `workdir`.
+    Returns the launches of each kernel in the phase and, for phase 9, the
+    trainer, the root, the scene, its pose metrics and train-view PSNR."""
     import torch
 
     from ht3dgs_torch.core.camera import intrinsics_from_fov
@@ -712,35 +724,35 @@ def phase_hierarchy(B, device, seed: int):
     print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
           f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)   # the trainer writes output/ under the working dir
+    os.chdir(workdir)   # the trainer writes output/ under the working dir
+    try:
+        os.makedirs("depth")
+        for i, d in enumerate(scene.depths):
+            np.save(os.path.join("depth", f"{i:04d}.npy"), d)
+        tr = InMemoryTrainer("", *tier_configs(os.path.abspath("depth")),
+                             seed=seed, device=device)
+        tr.result_path = os.path.abspath(tr.result_path)
+        counter = StepCounter(B, tr.timer)
+        originals = [(m, n, counter.wrap(m, n)) for m, n in (
+            (phase_a, "_fit_step"), (phase_a, "_pose_step"),
+            (step_lib, "gaussian_train_step"))]
         try:
-            os.makedirs("depth")
-            for i, d in enumerate(scene.depths):
-                np.save(os.path.join("depth", f"{i:04d}.npy"), d)
-            tr = InMemoryTrainer("", *tier_configs(os.path.abspath("depth")),
-                                 seed=seed, device=device)
-            counter = StepCounter(B, tr.timer)
-            originals = [(m, n, counter.wrap(m, n)) for m, n in (
-                (phase_a, "_fit_step"), (phase_a, "_pose_step"),
-                (step_lib, "gaussian_train_step"))]
-            try:
-                B.blend_fwd.launches = 0
-                B.blend_bwd.launches = 0
-                t0 = time.perf_counter()
-                bundle = tr.hierarchical_training()
-                wall = time.perf_counter() - t0
-                launches = counter._counts()
-            finally:
-                for m, n, fn in originals:
-                    setattr(m, n, fn)
-            psnr = tr.evaluate_on_training_images(save_images=False)
-            reloaded = tr.load_checkpoint(
-                os.path.join(tr.result_path, "chkpnt", "model.npz"))
-            same = torch.equal(tr.render_frame(bundle, 0)[1]["image"],
-                               tr.render_frame(reloaded, 0)[1]["image"])
+            B.blend_fwd.launches = 0
+            B.blend_bwd.launches = 0
+            t0 = time.perf_counter()
+            bundle = tr.hierarchical_training()
+            wall = time.perf_counter() - t0
+            launches = counter._counts()
         finally:
-            os.chdir(cwd)
+            for m, n, fn in originals:
+                setattr(m, n, fn)
+        psnr = tr.evaluate_on_training_images(save_images=False)
+        reloaded = tr.load_checkpoint(
+            os.path.join(tr.result_path, "chkpnt", "model.npz"))
+        same = torch.equal(tr.render_frame(bundle, 0)[1]["image"],
+                           tr.render_frame(reloaded, 0)[1]["image"])
+    finally:
+        os.chdir(cwd)
 
     summary = tr.timer.summary()
     print(f"phase 8: hierarchical_training {wall:.1f} s; capacity growths "
@@ -791,7 +803,398 @@ def phase_hierarchy(B, device, seed: int):
           f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / step_ms:.1f}%), host share "
           f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    return launches, (tr, bundle, scene, ev, psnr)
+
+
+# phase 9: the eval modes, the viewer and PLY on phase 8's root
+NOVEL = 120
+VIEWER_SIZES = ((TIER_W, TIER_H), (1920, 1080))
+VIEWER_REQUESTS = 4
+# phase 10: the networks against the CPU, with seeded random weights
+IFRNET_TOL = 1e-4
+LPIPS_RTOL = 1e-5
+NET_H, NET_W = 1080, 1920
+
+
+def launch_counts(B) -> dict:
+    return {"blend_fwd": B.blend_fwd.launches,
+            "blend_bwd": B.blend_bwd.launches}
+
+
+def run_counted(B, fn):
+    """(fn(), wall seconds, kernel launches) of one step of a path."""
+    import torch
+
+    torch.cuda.synchronize()
+    k0 = launch_counts(B)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v - k0[k] for k, v in launch_counts(B).items()}
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, make):
+    """module.name replaced by make(original) inside the block."""
+    fn = getattr(module, name)
+    setattr(module, name, make(fn))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def png_pixels(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of a PNG that utils.image.write_png wrote (8-bit
+    RGB, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: PNG signature")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    check(not rows[:, 0].any(), f"{path}: filter 0 rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def free_port() -> int:
+    import socket
+
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def viewer_requests(port: int, views, fovx: float, fovy: float):
+    """Send each (width, height, w2c) SIBR request on one connection;
+    returns [(width, height, w2c, payload bytes, ms)]."""
+    import socket
+    import struct
+
+    from ht3dgs_torch.cli.viewer import _read_exact
+
+    cli = None
+    for _ in range(300):
+        try:
+            cli = socket.create_connection(("127.0.0.1", port), timeout=5)
+            break
+        except OSError:
+            time.sleep(0.1)
+    check(cli is not None, "the viewer bridge accepts a connection")
+    cli.settimeout(300)
+    out = []
+    try:
+        for w, h, view in views:
+            msg = json.dumps({"resolution_x": w, "resolution_y": h,
+                              "fov_x": fovx, "fov_y": fovy, "z_near": 0.01,
+                              "z_far": 100.0}).encode()
+            mat = np.asarray(view, "<f4").T.tobytes()
+            t0 = time.perf_counter()
+            cli.sendall(struct.pack("<I", len(msg)) + msg + mat + mat)
+            (plen,) = struct.unpack("<I", _read_exact(cli, 4))
+            payload = _read_exact(cli, plen)
+            out.append((w, h, view, payload,
+                        (time.perf_counter() - t0) * 1e3))
+    finally:
+        cli.close()
+    return out
+
+
+def phase_eval(B, device, ctx):
+    """Phase 9 on phase 8's trainer and root: eval_pose, eval_nvs,
+    render_nvs, the viewer bridge and a PLY round trip. Returns the
+    launches of each kernel on the path."""
+    import threading
+
+    import torch
+
+    from ht3dgs_torch.cli import viewer
+    from ht3dgs_torch.core import se3
+    from ht3dgs_torch.core.camera import intrinsics_from_fov, make_camera
+    from ht3dgs_torch.data import ply
+    from ht3dgs_torch.train import phase_a
+    from ht3dgs_torch.train import step as step_lib
+
+    tr, bundle, scene, ev8, psnr8 = ctx
+    ckpt = os.path.join(tr.result_path, "chkpnt", "model.npz")
+
+    def report(what, wall, k, n=None, unit="steps"):
+        per = f", {n} {unit}, {1e3 * wall / n:.3f} ms each" if n else ""
+        print(f"phase 9 [{what}]: {wall:.3f} s{per}, launches {k}")
+
+    B.blend_fwd.launches = 0
+    B.blend_bwd.launches = 0
+
+    res, wall, k = run_counted(B, tr.eval_pose)
+    report("eval_pose", wall, k)
+    print(f"phase 9: eval_pose ATE {res['ATE']:.6f}, RPE_trans x100 "
+          f"{res['RPE_trans_x100']:.6f}, RPE_rot {res['RPE_rot_deg']:.6f} "
+          f"deg (phase 8: {ev8['ATE']:.6f}, {ev8['RPE_trans_x100']:.6f}, "
+          f"{ev8['RPE_rot_deg']:.6f})")
+    for key in ("ATE", "RPE_trans_x100", "RPE_rot_deg"):
+        check(abs(res[key] - ev8[key]) <= 1e-6,
+              f"eval_pose {key} equals phase 8's to 1e-6")
+
+    n_pose = [0]
+
+    def counting(fn):
+        def step(*a, **kw):
+            n_pose[0] += 1
+            return fn(*a, **kw)
+        return step
+
+    with wrapped(phase_a, "_pose_step", counting):
+        res, wall, k = run_counted(B, tr.eval_nvs)
+    epochs = tr.sched.eval_nvs_epochs
+    report("eval_nvs", wall, k, n_pose[0], "pose steps")
+    for f, p, s_, l_ in res["rows"]:
+        print(f"phase 9: eval_nvs frame {f}: PSNR {p:.3f} SSIM {s_:.4f} "
+              f"LPIPS {l_:.3f}")
+    print(f"phase 9: eval_nvs mean PSNR {res['psnr']:.3f} dB "
+          f"({res['psnr'] - psnr8:+.3f} vs phase 8's train-view "
+          f"{psnr8:.3f}), SSIM {res['ssim']:.4f}, LPIPS {res['lpips']:.3f} "
+          f"(NaN without weights); {epochs} epochs, batch "
+          f"{tr.pipe_cfg.eval_nvs_batch}")
+    check(n_pose[0] == TIER_FRAMES * epochs,
+          f"eval_nvs ran {TIER_FRAMES} x {epochs} pose steps")
+    check(res["psnr"] > MIN_PSNR, f"eval_nvs mean PSNR > {MIN_PSNR} dB")
+    check(k["blend_fwd"] >= n_pose[0] and k["blend_bwd"] >= n_pose[0],
+          "eval_nvs: K1 and K2 launched once per pose step")
+    poses_nvs = res["poses"]
+
+    images = []
+
+    def recording(fn):
+        def render_eval(*a, **kw):
+            out = fn(*a, **kw)
+            images.append(out["image"])
+            return out
+        return render_eval
+
+    with wrapped(step_lib, "render_eval", recording):
+        mp4, wall, k = run_counted(B, tr.render_nvs)
+    report("render_nvs", wall, k, NOVEL, "frames")
+    img_dir = os.path.join(tr.result_path, "nvs", "bspline", "img_out")
+    names = sorted(os.listdir(img_dir))
+    print(f"phase 9: render_nvs wrote {len(names)} PNGs; returned {mp4}")
+    check(names == [f"{i:04d}.png" for i in range(NOVEL)],
+          f"render_nvs wrote {NOVEL} PNGs")
+    check(k["blend_fwd"] >= NOVEL, f"render_nvs: K1 launched {NOVEL} times")
+    for name, img in zip(names, images[-NOVEL:]):
+        check(bool(torch.isfinite(img).all()), f"novel frame {name} finite")
+        want = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        got = png_pixels(os.path.join(img_dir, name))
+        check(np.array_equal(got, want), f"{name} holds the render")
+        check(int(got.max()) > int(got.min()), f"{name} not constant")
+
+    port = free_port()
+    threading.Thread(target=viewer.serve, args=(ckpt, "127.0.0.1", port),
+                     kwargs={"device": device}, daemon=True).start()
+    fovx, fovy = 1.2, tr.data[0].fovy
+    step = TIER_FRAMES // VIEWER_REQUESTS
+    views = [(w, h, bundle.get_RT(i * step)) for w, h in VIEWER_SIZES
+             for i in range(VIEWER_REQUESTS)]
+    replies, wall, k = run_counted(
+        B, lambda: viewer_requests(port, views, fovx, fovy))
+    report("viewer", wall, k, len(replies), "requests")
+    for w, h in VIEWER_SIZES:
+        ms = [r[4] for r in replies if r[:2] == (w, h)]
+        print(f"phase 9: viewer {w}x{h}: median {statistics.median(ms):.2f} "
+              f"ms per request ({', '.join(f'{x:.2f}' for x in ms)})")
+    check(k["blend_fwd"] >= len(views), "viewer: K1 launched per request")
+
+    st = tr.gs_bundle.state   # the checkpoint's, loaded by render_nvs
+    path = os.path.join(tr.result_path, "model.ply")
+
+    def ply_round_trip():
+        ply.save_ply(st, path)
+        st_ply = ply.load_ply(path, max_sh_degree=st.max_sh_degree,
+                              capacity=st.capacity, device=device)
+        # a PLY keeps no active SH degree: load_ply activates every degree
+        full = dataclasses.replace(st, active_sh_degree=st_ply.active_sh_degree)
+        cam = tr.camera_for(0, pose=bundle.get_RT(0))
+        return st_ply, [step_lib.render_eval(x, cam, mode=tr._mode,
+                                             tile_args=tr._tile_args)["image"]
+                        for x in (full, st_ply)]
+
+    (st_ply, (a, b)), wall, k = run_counted(B, ply_round_trip)
+    report("ply", wall, k)
+    print(f"phase 9: PLY {os.path.getsize(path) / 1e6:.2f} MB, "
+          f"{int(st_ply.n_live())} Gaussians (checkpoint: "
+          f"{int(st.n_live())}, active SH degree "
+          f"{int(st.active_sh_degree)} -> {int(st_ply.active_sh_degree)}); "
+          f"frame 0 renders equal: {torch.equal(a, b)}")
+    check(int(st_ply.n_live()) == int(st.n_live()), "PLY keeps every live row")
+    check(torch.equal(a, b), "the PLY state renders frame 0 bit for bit")
+    launches = launch_counts(B)
+
+    # outside the counted path: the viewer's answers against render_eval
+    # of the same cameras, and the host share of one test-time pose step
+    state_v = viewer.load_state(ckpt, device)
+    for w, h, view, payload, _ in replies:
+        cam = make_camera(h, w, intrinsics_from_fov(fovx, h, w, fovy=fovy),
+                          world_view=view, device=device)
+        out = step_lib.render_eval(state_v, cam, mode="auto")
+        want = (np.clip(out["image"].cpu().numpy(), 0, 1) * 255
+                ).astype(np.uint8)
+        print(f"phase 9: viewer {w}x{h}: payload {len(payload)} bytes, "
+              f"dropped m={int(out.get('n_dropped_m', 0))} "
+              f"tile={int(out.get('n_dropped_tile', 0))}")
+        check(len(payload) == h * w * 3, f"viewer {w}x{h}: H*W*3 bytes")
+        check(payload == want.tobytes(),
+              f"viewer {w}x{h}: payload equals render_eval's bytes")
+
+    base = se3.se3_from_matrix(torch.as_tensor(poses_nvs[0], device=device))
+    gt, cam = tr.device_frame("rgb", 0), tr.camera_for(0)
+    opt = step_lib.init_pose_opt(device)
+    delta = torch.zeros(6, device=device)
+    step_ms, busy_ms = host_share(lambda: phase_a._pose_step(
+        st, delta, base, opt, cam, gt, tr.sched.rotation_lr, mode=tr._mode,
+        tile_args=tr._tile_args, lambda_dssim=tr.sched.lambda_dssim))
+    print(f"phase 9: test-time pose step at {TIER_W}x{TIER_H}: median "
+          f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}%), host share "
+          f"{100 * (1 - busy_ms / step_ms):.1f}%")
     return launches
+
+
+def random_vgg_weights(seed: int) -> dict:
+    """LPIPS npz arrays (conv{i}_w/_b, lin{i}) with He-scaled random VGG16
+    weights, from numpy."""
+    from ht3dgs_torch.eval.metrics import _VGG_CFG
+
+    rng = np.random.default_rng(seed)
+    w, cin, ci = {}, 3, 0
+    for v in _VGG_CFG:
+        if v == "M":
+            continue
+        w[f"conv{ci}_w"] = (rng.standard_normal((v, cin, 3, 3))
+                            * np.sqrt(2.0 / (cin * 9))).astype(np.float32)
+        w[f"conv{ci}_b"] = (0.01 * rng.standard_normal(v)).astype(np.float32)
+        cin, ci = v, ci + 1
+    for i, c in enumerate([64, 128, 256, 512, 512]):
+        w[f"lin{i}"] = (rng.random((1, c, 1, 1)) * 0.1).astype(np.float32)
+    return w
+
+
+def event_ms(fn, runs: int = 5):
+    """Median device time of fn() over `runs` calls, each timed alone by
+    CUDA events, after one warm-up call; and the peak memory of a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), torch.cuda.max_memory_allocated()
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels that one call of fn() launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def phase_networks(device, seed: int, frames) -> None:
+    """Phase 10: IFRNet and LPIPS with seeded random weights on the card
+    (cuDNN TF32 off) against the CPU on a 256x192 pair, then timed at
+    1920x1080."""
+    import tempfile
+
+    import torch
+
+    from ht3dgs_torch.data import ifrnet
+    from ht3dgs_torch.eval import metrics
+    from ht3dgs_torch.train.losses import full_precision_convs
+
+    img0, img1 = frames[0], frames[1]
+    params = ifrnet.random_params(seed)
+    nets = {d: ifrnet.from_params(params, d) for d in (device, "cpu")}
+    mids = {d: ifrnet.interpolate(n, img0, img1) for d, n in nets.items()}
+    err = float(np.abs(mids[device] - mids["cpu"]).max())
+    print(f"phase 10: IFRNet {TIER_W}x{TIER_H} card vs CPU max|d| "
+          f"{err:.3e} (limit {IFRNET_TOL:g}); midway frame range "
+          f"[{mids['cpu'].min():.3f}, {mids['cpu'].max():.3f}]")
+    check(err <= IFRNET_TOL, f"IFRNet card vs CPU {IFRNET_TOL:g}")
+
+    rng = np.random.default_rng(seed + 10)
+    big = [ifrnet.pad16(rng.random((NET_H, NET_W, 3), dtype=np.float32),
+                        device) for _ in range(2)]
+    net = nets[device]
+
+    def on_cudnn():
+        # the same network on cuDNN's float32 convolutions, for comparison
+        with torch.no_grad(), full_precision_convs():
+            return net._interpolate(*big, 0.5)
+
+    for what, fn in (("PyTorch's convolutions (the module's)",
+                      lambda: net(*big)),
+                     ("cuDNN's float32 convolutions", on_cudnn)):
+        ms, mem = event_ms(fn)
+        print(f"phase 10: IFRNet {NET_W}x{NET_H} (padded to "
+              f"{big[0].shape[3]}x{big[0].shape[2]}) on {what}: median "
+              f"{ms:.3f} ms per pair over 5, peak memory "
+              f"{mem / 2**30:.3f} GiB, {kernel_launches(fn)} kernel "
+              f"launches per pair")
+    del nets, net, big
+
+    old = os.environ.get("HT3DGS_LPIPS_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lpips_vgg.npz")
+        np.savez(path, **random_vgg_weights(seed))
+        os.environ["HT3DGS_LPIPS_WEIGHTS"] = path
+        try:
+            vals = {d: metrics.lpips(img0, img1, device=d)
+                    for d in (device, "cpu")}
+            rel = abs(vals[device] - vals["cpu"]) / abs(vals["cpu"])
+            print(f"phase 10: LPIPS {TIER_W}x{TIER_H} card "
+                  f"{vals[device]:.9f} CPU {vals['cpu']:.9f}, relative "
+                  f"{rel:.3e} (limit {LPIPS_RTOL:g})")
+            check(rel <= LPIPS_RTOL, f"LPIPS card vs CPU relative "
+                  f"{LPIPS_RTOL:g}")
+            net = metrics.lpips_module(device)
+            big = [torch.as_tensor(rng.random((1, 3, NET_H, NET_W),
+                                              dtype=np.float32),
+                                   device=device) for _ in range(2)]
+            ms, mem = event_ms(lambda: net(*big))
+            print(f"phase 10: LPIPS {NET_W}x{NET_H}: median {ms:.3f} ms per "
+                  f"call over 5, peak memory {mem / 2**30:.3f} GiB, "
+                  f"{kernel_launches(lambda: net(*big))} kernel launches "
+                  f"per call")
+        finally:
+            if old is None:
+                os.environ.pop("HT3DGS_LPIPS_WEIGHTS")
+            else:
+                os.environ["HT3DGS_LPIPS_WEIGHTS"] = old
+            metrics._cached.clear()
 
 
 def host_share(fn, reps: int = 20, profiled: int = 5):
@@ -896,11 +1299,16 @@ def main() -> None:
     # 7. small scene against the oracle
     small_reference(device, args.seed)
 
-    # 8. the hierarchical trainer
-    hier_launches = phase_hierarchy(B, device, args.seed)
+    # 8-9. the hierarchical trainer, then the eval modes on its root
+    with tempfile.TemporaryDirectory() as workdir:
+        hier_launches, ctx = phase_hierarchy(B, device, args.seed, workdir)
+        eval_launches = phase_eval(B, device, ctx)
+    # 10. the networks
+    phase_networks(device, args.seed, ctx[2].frames)
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
-                   "hierarchy": hier_launches[rec["name"]]}
+                   "hierarchy": hier_launches[rec["name"]],
+                   "eval": eval_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:

@@ -5,7 +5,8 @@ counterpart of `ht3dgs.data.vfi`:
 - "precomputed": `{dir}/{i}_to_{i+1}.{png,jpg,npy}` midway frames (PIL only
   for the images);
 - "none": no VFI;
-- "ifrnet": not ported yet (ROADMAP, P11).
+- "ifrnet": the IFRNet network (`data.ifrnet`) on the trainer's device,
+  from a converted IFRNet_Vimeo90K checkpoint.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from . import ifrnet
 
 
 class VFIProvider:
@@ -46,6 +49,14 @@ class PrecomputedVFI(VFIProvider):
             f"no precomputed VFI frame {pair_name} under {self.dir}")
 
 
+class IFRNetVFI(VFIProvider):
+    def __init__(self, checkpoint: Optional[str] = None, device="cuda"):
+        self.net = ifrnet.build(checkpoint, device)
+
+    def __call__(self, img0, img1, pair_name):
+        return ifrnet.interpolate(self.net, img0, img1)
+
+
 def make_vfi_provider(kind: str, **kw) -> Optional[VFIProvider]:
     if kind in ("none", ""):
         return None
@@ -54,7 +65,5 @@ def make_vfi_provider(kind: str, **kw) -> Optional[VFIProvider]:
     if kind == "precomputed":
         return PrecomputedVFI(**kw)
     if kind == "ifrnet":
-        raise NotImplementedError(
-            "the IFRNet VFI provider is not ported yet (ROADMAP P11); use "
-            "'blend' or 'precomputed'")
+        return IFRNetVFI(**kw)
     raise ValueError(f"unknown VFI provider {kind}")

@@ -15,8 +15,8 @@ per frame per model, anchored at each segment's first frame.
 Randomness: `self.rng` (Python's `random.Random(seed)`, drawn in the JAX
 trainer's order, so the frame-sampling stream is the same) and `self.gen`,
 a `torch.Generator` on the trainer's device that draws the split noise of
-densify in place of the JAX trainer's key. Multi-device training and the
-eval modes are not ported yet (ROADMAP).
+densify in place of the JAX trainer's key. The eval modes live in
+`train.evals`. Multi-device training is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -1074,11 +1074,24 @@ class HTGaussianTrainer(GaussianTrainer):
             self.pose_dict = dict(z)
 
     # ------------------------------------------------------------------ #
-    def eval_nvs(self, **kw):
-        raise NotImplementedError("eval_nvs is not ported yet (ROADMAP)")
+    # eval / render modes (train.evals)
+    def eval_nvs(self, checkpoint: Optional[str] = None,
+                 pose_file: Optional[str] = None) -> dict:
+        from . import evals
 
-    def eval_pose(self, **kw):
-        raise NotImplementedError("eval_pose is not ported yet (ROADMAP)")
+        return evals.eval_nvs(self, checkpoint=checkpoint,
+                              pose_file=pose_file)
 
-    def render_nvs(self, **kw):
-        raise NotImplementedError("render_nvs is not ported yet (ROADMAP)")
+    def eval_pose(self, pose_file: Optional[str] = None) -> dict:
+        from . import evals
+
+        return evals.eval_pose(self, pose_file=pose_file)
+
+    def render_nvs(self, checkpoint: Optional[str] = None,
+                   pose_file: Optional[str] = None, n_novel: int = 120,
+                   traj_opt: str = "bspline") -> str:
+        from . import evals
+
+        return evals.render_nvs(self, checkpoint=checkpoint,
+                                pose_file=pose_file, n_novel=n_novel,
+                                traj_opt=traj_opt)

@@ -12,6 +12,7 @@ matrix products are full precision already
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional
 
@@ -45,13 +46,23 @@ def _depthwise_blur(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     return y[0].permute(1, 2, 0)
 
 
+@contextlib.contextmanager
+def full_precision_convs(use_cudnn: bool = True):
+    """Convolutions in float32 without TF32, inside this block only: the
+    training step's other settings stay as they are. use_cudnn=False runs
+    them on PyTorch's own kernels (im2col + cuBLAS) in place of cuDNN's."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled and use_cudnn,
+                     benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
     """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5)."""
     w = _window(window_size, img1.device)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with full_precision_convs():
         mu1 = _depthwise_blur(img1, w)
         mu2 = _depthwise_blur(img2, w)
         mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

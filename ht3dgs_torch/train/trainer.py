@@ -66,7 +66,8 @@ class GaussianTrainer:
         if pipe_cfg.vfi_provider == "precomputed":
             vfi_kw["directory"] = pipe_cfg.vfi_dir
         elif pipe_cfg.vfi_provider == "ifrnet":
-            vfi_kw["checkpoint"] = pipe_cfg.vfi_checkpoint
+            vfi_kw.update(checkpoint=pipe_cfg.vfi_checkpoint,
+                          device=self.device)
         self.vfi_provider = vfi_lib.make_vfi_provider(
             pipe_cfg.vfi_provider, **vfi_kw)
 

@@ -1,5 +1,7 @@
-"""Phase timing: named-phase wall time and counts that the trainer logs at
-the end of a run. Counterpart of `ht3dgs.utils.profiling.PhaseTimer`."""
+"""Tracing and phase timing. Counterpart of `ht3dgs.utils.profiling`:
+`torch_trace` captures a torch.profiler trace around any block (the
+counterpart of `jax_trace`), and `PhaseTimer` keeps the named-phase wall
+time and counts that the trainer logs at the end of a run."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ import contextlib
 import json
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 
 class PhaseTimer:
@@ -34,3 +36,23 @@ class PhaseTimer:
     def dump(self, path: str):
         with open(path, "w") as f:
             json.dump(self.summary(), f, indent=2)
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: Optional[str]):
+    """Capture a torch.profiler trace of the block (host and, where there
+    is a card, CUDA activity) into log_dir as a Chrome/TensorBoard trace
+    when log_dir is set; nothing otherwise."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -140,5 +140,6 @@ def test_save_image_and_providers(tmp_path):
     np.testing.assert_array_equal(
         t_vfi.make_vfi_provider("blend")(img, gt, "0_to_1"), 0.5 * (img + gt))
     assert t_vfi.make_vfi_provider("none") is None
-    with pytest.raises(NotImplementedError, match="P11"):
-        t_vfi.make_vfi_provider("ifrnet")
+    # IFRNet needs a checkpoint (test_torch_ifrnet runs it with one)
+    with pytest.raises(ValueError, match="checkpoint"):
+        t_vfi.make_vfi_provider("ifrnet", device="cpu")
