@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive ht3dgs_torch's training step, hierarchical trainer, eval modes,
-viewer bridge and networks on one NVIDIA card and check them.
+viewer bridge, networks and multi-device path on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py [--seed 0] [--profile PATH]
 
@@ -40,7 +41,7 @@ Phases (any failure exits non-zero):
    kernel launched at least once per step in every trainer phase;
 9. the eval path on phase 8's root, with every launch count at 0 first:
    eval_pose (ATE/RPE equal to phase 8's to 1e-6), eval_nvs (16 frames x
-   eval_nvs_epochs test-time pose steps, mean PSNR above 18 dB, K1 and K2
+   50 test-time pose steps, mean PSNR above 18 dB, K1 and K2
    once per pose step), render_nvs (120 PNGs, each the render it holds,
    finite and not constant), the SIBR viewer bridge on a loopback port (4
    requests at 256x192 and 4 at 1920x1080, each reply byte for byte the
@@ -49,7 +50,18 @@ Phases (any failure exits non-zero):
 10. IFRNet and LPIPS with seeded random weights: the card (float32, no
    TF32) against the CPU on a 256x192 pair (IFRNet max |d| <= 1e-4, LPIPS
    relative <= 1e-5), then the median ms, peak memory and kernel launches
-   at 1920x1080 (IFRNet also on cuDNN's convolutions, for comparison).
+   at 1920x1080 (IFRNet also on cuDNN's convolutions, for comparison);
+11. multi-device (torch.distributed, one process per rank): (a) the
+   hierarchy step on a (1, 1) mesh of one NCCL rank, and (b) on a (1, 4)
+   mesh of 4 gloo ranks sharing the card, without and with compact_n, and
+   the Gaussian-sharded step, each held to gaussian_train_step on the
+   trained-stats scene (rotated, anisotropic: mesh_scene) at tile arguments
+   that drop no entry; (c) the full tier's hierarchical_training on a
+   (2, 2) mesh of 4 gloo ranks: poses within 3 degrees, PSNR above 18 dB,
+   the root covering every frame and bit-equal on every rank (SHA-256), K1
+   and K2 launched once per step in every trainer phase of every rank;
+   it prints the phase table, all-reduce and broadcast times and the host
+   share of a root step on a (1, 4) mesh.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -153,7 +165,7 @@ def kernel_entries(state, cam):
         proj = project(state.means, state.scales(), state.quats,
                        state.opacities(), state.sh(), state.live, cam,
                        state.active_sh_degree, state.max_sh_degree)
-        ent, meta, total, nd_m, nd_tile = build_tile_lists(
+        ent, meta, total, nd_m, nd_tile, _ = build_tile_lists(
             proj, cam.height, cam.width, **TILE_ARGS)
     return ent, meta, int(total), int(nd_m), int(nd_tile)
 
@@ -478,6 +490,35 @@ def bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def perturbed(state, seed: int, device):
+    """The main path's starting point: the means moved by 0.01 sigma
+    noise (from seed + 1), every opacity logit lowered by 0.5."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    return state.replace_params(dict(
+        state.params(),
+        means=state.means + 0.01 * torch.randn(
+            state.means.shape, generator=g, device=device),
+        opacity_logit=state.opacity_logit - 0.5))
+
+
+def mesh_scene(state, seed: int, device):
+    """Phase 11's starting point: the perturbed scene with random
+    rotations and anisotropic scales (from seed + 2). The scene's own
+    identity rotations and isotropic scales leave the rotation gradient
+    at rounding noise, which no tolerance can compare."""
+    import torch
+
+    st = perturbed(state, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    q = torch.randn(st.quats.shape, generator=g, device=device)
+    return st.replace_params(dict(
+        st.params(), quats=q / q.norm(dim=1, keepdim=True),
+        log_scales=st.log_scales + 0.4 * torch.randn(
+            st.log_scales.shape, generator=g, device=device)))
+
+
 def main_path(state, cam, device, seed):
     """Target render, 10 gaussian_train_steps, 5 pose_train_steps.
     Returns (gaussian losses, pose losses, median step ms, metrics)."""
@@ -489,12 +530,7 @@ def main_path(state, cam, device, seed):
 
     target = step.render_eval(state, cam, mode="tiled",
                               tile_args=TILE_ARGS)["image"]
-    g = torch.Generator(device=device).manual_seed(seed + 1)
-    pert = state.replace_params(dict(
-        state.params(),
-        means=state.means + 0.01 * torch.randn(
-            state.means.shape, generator=g, device=device),
-        opacity_logit=state.opacity_logit - 0.5))
+    pert = perturbed(state, seed, device)
     opt = adam.init(pert.params())
     losses, step_ms = [], []
     for _ in range(10):
@@ -613,11 +649,13 @@ HIER_PHASES = ("phase_a", "leaf", "merge", "nonleaf_phase1",
 
 def tier_configs(depth_dir: str):
     """The full tier's recipe and budgets (tools/_tiers.py, apply_tier
-    "full"), except the root's MSS budgets, which the tier leaves at the
-    defaults (phase 1: 50 iterations per frame, phase 2: 300): at those the
-    phase took 335.6 s on an H100 80GB HBM3 at 700 W (steps host-bound at
-    23-31 ms), so they are cut to 10 (the repo's medium and scale tiers'
-    phase 1) and 25."""
+    "full"), except two cuts. The root's MSS budgets, which the tier leaves
+    at the defaults (phase 1: 50 iterations per frame, phase 2: 300): at
+    those phase 8 took 335.6 s on an H100 80GB HBM3 at 700 W (steps
+    host-bound at 23-31 ms), so they are cut to 10 (the repo's medium and
+    scale tiers' phase 1) and 25. And the steps per leaf frame, from 100
+    to 50, for phase 11c (this recipe on a 2 x 2 mesh): with it the script
+    took 691.6 s on the same card."""
     from ht3dgs_torch.utils.config import load_configs
 
     model, pipe, optim = load_configs()
@@ -636,7 +674,7 @@ def tier_configs(depth_dir: str):
     pipe.tile_dup_factor = 32
     optim.opacity_reset_interval_override = 100_000
     optim.pose_lr = 3e-3
-    optim.single_step = 100
+    optim.single_step = 50
     optim.phase_a_fit_iters = 400
     optim.phase_a_pose_iters = 150
     optim.leaf_init_iters = 400
@@ -687,21 +725,15 @@ class StepCounter:
         return fn
 
 
-def phase_hierarchy(B, device, seed: int, workdir: str):
-    """Phase 8: HTGaussianTrainer.hierarchical_training on the full tier's
-    synthetic scene, frames and depths in memory, writing under `workdir`.
-    Returns the launches of each kernel in the phase and, for phase 9, the
-    trainer, the root, the scene, its pose metrics and train-view PSNR."""
-    import torch
-
+def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
+    """The full tier's trainer on its synthetic scene, frames in memory,
+    depths as .npy under depth/ of the working directory (written when
+    write_depth), with a (segments, tiles) mesh. Returns (trainer, scene)."""
     from ht3dgs_torch.core.camera import intrinsics_from_fov
     from ht3dgs_torch.data.readers import FrameInfo, SceneInfo
-    from ht3dgs_torch.eval import pose_eval
-    from ht3dgs_torch.train import hierarchy, phase_a
-    from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.train import hierarchy
     from ht3dgs_torch.utils import synthetic
 
-    t0 = time.perf_counter()
     scene = synthetic.generate(n_frames=TIER_FRAMES, height=TIER_H,
                                width=TIER_W, n_gaussians=TIER_GAUSSIANS,
                                fovx=1.2, seed=seed, device=device)
@@ -721,17 +753,48 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         def setup_dataset(self):
             self.set_scene(info)
 
-    print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
-          f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
+    if write_depth:
+        os.makedirs("depth", exist_ok=True)
+        for i, d in enumerate(scene.depths):
+            np.save(os.path.join("depth", f"{i:04d}.npy"), d)
+    model, pipe, optim = tier_configs(os.path.abspath("depth"))
+    pipe.mesh_segments, pipe.mesh_tiles = mesh
+    tr = InMemoryTrainer("", model, pipe, optim, seed=seed, device=device)
+    tr.result_path = os.path.abspath(tr.result_path)
+    return tr, scene
+
+
+def rotation_errors(tr, scene) -> list:
+    """Degrees between each relative pose and the truth."""
+    gt = scene.poses_w2c
+    rot_err = []
+    for f in range(1, TIER_FRAMES):
+        rel = tr.pose_dict[f"rel_pose_{f - 1}_to_{f}"]
+        check(np.all(np.isfinite(rel)), f"rel_pose_{f - 1}_to_{f} finite")
+        dR = rel[:3, :3] @ (gt[f] @ np.linalg.inv(gt[f - 1]))[:3, :3].T
+        rot_err.append(float(np.degrees(np.arccos(np.clip(
+            (np.trace(dR) - 1) / 2, -1.0, 1.0)))))
+    return rot_err
+
+
+def phase_hierarchy(B, device, seed: int, workdir: str):
+    """Phase 8: HTGaussianTrainer.hierarchical_training on the full tier's
+    synthetic scene, frames and depths in memory, writing under `workdir`.
+    Returns the launches of each kernel in the phase and, for phase 9, the
+    trainer, the root, the scene, its pose metrics and train-view PSNR."""
+    import torch
+
+    from ht3dgs_torch.eval import pose_eval
+    from ht3dgs_torch.train import phase_a
+    from ht3dgs_torch.train import step as step_lib
+
+    t0 = time.perf_counter()
     cwd = os.getcwd()
     os.chdir(workdir)   # the trainer writes output/ under the working dir
     try:
-        os.makedirs("depth")
-        for i, d in enumerate(scene.depths):
-            np.save(os.path.join("depth", f"{i:04d}.npy"), d)
-        tr = InMemoryTrainer("", *tier_configs(os.path.abspath("depth")),
-                             seed=seed, device=device)
-        tr.result_path = os.path.abspath(tr.result_path)
+        tr, scene = tier_trainer(device, seed)
+        print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
+              f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
         counter = StepCounter(B, tr.timer)
         originals = [(m, n, counter.wrap(m, n)) for m, n in (
             (phase_a, "_fit_step"), (phase_a, "_pose_step"),
@@ -764,15 +827,9 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         per = f"{1e3 * total / n:.2f} ms per step" if n else "no steps"
         print(f"phase 8 [{name}]: {total:.3f} s x{ph.get('count', 0)}, "
               f"{n} steps, {per}, launches {dict(counter.launches[name])}")
-    gt = scene.poses_w2c
-    rot_err = []
-    for f in range(1, TIER_FRAMES):
-        rel = tr.pose_dict[f"rel_pose_{f - 1}_to_{f}"]
-        check(np.all(np.isfinite(rel)), f"rel_pose_{f - 1}_to_{f} finite")
-        dR = rel[:3, :3] @ (gt[f] @ np.linalg.inv(gt[f - 1]))[:3, :3].T
-        rot_err.append(float(np.degrees(np.arccos(np.clip(
-            (np.trace(dR) - 1) / 2, -1.0, 1.0)))))
-    ev = pose_eval.evaluate_poses(gt, bundle.poses[:TIER_FRAMES])
+    rot_err = rotation_errors(tr, scene)
+    ev = pose_eval.evaluate_poses(scene.poses_w2c,
+                                  bundle.poses[:TIER_FRAMES])
     print(f"phase 8: relative-pose rotation error, degrees: max "
           f"{max(rot_err):.4f}, mean {np.mean(rot_err):.4f}; ATE "
           f"{ev['ATE']:.5f}, RPE_trans x100 {ev['RPE_trans_x100']:.4f}, "
@@ -808,6 +865,9 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
 
 # phase 9: the eval modes, the viewer and PLY on phase 8's root
 NOVEL = 120
+# test-time pose steps per frame, cut from the default 200 to keep the
+# script with phase 11 inside its time
+EVAL_NVS_EPOCHS = 50
 VIEWER_SIZES = ((TIER_W, TIER_H), (1920, 1080))
 VIEWER_REQUESTS = 4
 # phase 10: the networks against the CPU, with seeded random weights
@@ -956,6 +1016,7 @@ def phase_eval(B, device, ctx):
             return fn(*a, **kw)
         return step
 
+    tr.sched.eval_nvs_epochs = EVAL_NVS_EPOCHS
     with wrapped(phase_a, "_pose_step", counting):
         res, wall, k = run_counted(B, tr.eval_nvs)
     epochs = tr.sched.eval_nvs_epochs
@@ -1197,6 +1258,440 @@ def phase_networks(device, seed: int, frames) -> None:
             metrics._cached.clear()
 
 
+# phase 11: multi-device on the card. One card admits one NCCL rank (NCCL
+# refuses two ranks on a device), so 11a runs NCCL at world size 1 and 11b/c
+# run MESH_RANKS processes on the one card over gloo, which reduces CUDA
+# tensors through the host.
+MESH_RANKS = 4
+COMPACT_FRAC = 2.0
+# the sharded steps are held to the single-device step where neither drops
+# an entry: dup_factor 32 keeps M above this scene's 26.2M entries, and
+# max_per_tile is the next power of two above the longest tile list of the
+# full image and of every row block (mesh_tile_args)
+MESH_DUP = 32
+
+
+class CommTimer:
+    """Wall time and count of torch.distributed's all_reduce and broadcast
+    in this process (each returns when its collective is done), by
+    wrapping them; the port calls them through the module."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.s = {"all_reduce": 0.0, "broadcast": 0.0}
+        self.n = {"all_reduce": 0, "broadcast": 0}
+        for name in self.s:
+            fn = getattr(dist, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_name] += time.perf_counter() - t0
+                    self.n[_name] += 1
+
+            setattr(dist, name, timed)
+
+    def snapshot(self):
+        return dict(self.s), dict(self.n)
+
+
+def round128(n: float) -> int:
+    return -(-int(n) // 128) * 128
+
+
+def tile_loads(state, cam, n_blocks: int):
+    """(longest tile list, most rows with entries in one block) of the full
+    image and of its n_blocks row blocks, from the binning's tile
+    rectangles (a 2-D difference array per image)."""
+    import torch
+
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+    from ht3dgs_torch.raster.projection import project
+
+    longest, rows = 0, 0
+    bh = cam.height // n_blocks
+    views = [(cam, False)] + [(mesh_lib._row_block_camera(cam, t * bh, bh),
+                               True) for t in range(n_blocks)]
+    for c, block in views:
+        with torch.no_grad():
+            p = project(state.means, state.scales(), state.quats,
+                        state.opacities(), state.sh(), state.live, c,
+                        state.active_sh_degree, state.max_sh_degree)
+        ntx, nty = -(-c.width // 16), -(-c.height // 16)
+        mx, my = p.means2d[:, 0], p.means2d[:, 1]
+        ex, ey = p.extents[:, 0], p.extents[:, 1]
+        x0 = torch.floor((mx - ex) / 16).clamp(0, ntx).long()
+        x1 = torch.floor((mx + ex + 15) / 16).clamp(0, ntx).long()
+        y0 = torch.floor((my - ey) / 16).clamp(0, nty).long()
+        y1 = torch.floor((my + ey + 15) / 16).clamp(0, nty).long()
+        on = p.valid & (x1 > x0) & (y1 > y0)
+        x0, x1, y0, y1 = (v[on] for v in (x0, x1, y0, y1))
+        d = torch.zeros((nty + 1) * (ntx + 1), dtype=torch.int64,
+                        device=state.device)
+        for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                             (y1, x1, 1)):
+            d.index_add_(0, yy * (ntx + 1) + xx,
+                         torch.full_like(yy, sign))
+        counts = d.reshape(nty + 1, ntx + 1).cumsum(0).cumsum(1)
+        longest = max(longest, int(counts.max()))
+        if block:
+            rows = max(rows, int(on.sum()))
+    return longest, rows
+
+
+def mesh_tile_args(longest: int) -> dict:
+    K = 128
+    while K < longest:
+        K *= 2
+    return dict(tile_h=16, tile_w=16, max_per_tile=K, dup_factor=MESH_DUP)
+
+
+def compare_step(got, ref, what: str, params: bool = True) -> dict:
+    """A sharded step's (state, opt, metrics) against the single-device
+    step's: loss 1e-5 relative; gradients (the first Adam moments after
+    one step from zero, 0.1 x the gradient) 1e-4 of their max; new
+    parameters where both gradients are above 1e-6 of the max, 1e-5
+    relative; grad_accum and max_radii2d 1e-4 of their max; counters
+    equal. Returns the errors."""
+    import torch
+
+    from ht3dgs_torch.core.gaussians import PARAM_FIELDS
+
+    (gs, go, gm), (rs, ro, rm) = got, ref
+    errs = {"loss": abs(float(gm["loss"]) - float(rm["loss"]))
+            / abs(float(rm["loss"]))}
+    check(errs["loss"] <= 1e-5, f"{what}: loss 1e-5 relative")
+    for f in PARAM_FIELDS:
+        scale = float(ro.m[f].abs().max())
+        if scale == 0.0:
+            check(float(go.m[f].abs().max()) == 0.0, f"{what}: m[{f}] zero")
+            continue
+        e = float((go.m[f] - ro.m[f]).abs().max()) / scale
+        errs[f"grad {f}"] = e
+        check(e <= 1e-4, f"{what}: gradient of {f} 1e-4 of its max")
+        if params:
+            both = (go.m[f].abs() > 1e-6 * scale) & (
+                ro.m[f].abs() > 1e-6 * scale)
+            d = (getattr(gs, f) - getattr(rs, f)).abs() / getattr(
+                rs, f).abs().clamp(min=1.0)
+            e = float(torch.where(both, d, 0.0).max())
+            errs[f"param {f}"] = e
+            check(e <= 1e-5, f"{what}: new {f} 1e-5 where both gradients "
+                  "are above 1e-6 of the max")
+    for f in ("grad_accum", "max_radii2d"):
+        a, b = getattr(gs, f), getattr(rs, f)
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        errs[f] = e
+        check(e <= 1e-4, f"{what}: {f} 1e-4 of its max")
+    for k in ("n_dropped", "n_dropped_m", "n_dropped_tile"):
+        if k in gm:
+            check(int(gm[k]) == int(rm[k]), f"{what}: {k} equal "
+                  f"({int(gm[k])} vs {int(rm[k])})")
+    print(f"phase 11: {what} vs gaussian_train_step: loss "
+          f"{float(gm['loss']):.8f} vs {float(rm['loss']):.8f}; relative "
+          "errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def phase_nccl(B, state, cam, target, device):
+    """11a: build_hierarchy_step on a (1, 1) mesh of one NCCL rank against
+    gaussian_train_step, on the trained-stats scene at TILE_ARGS. Returns
+    the kernel launches of the sharded step."""
+    import torch
+
+    from ht3dgs_torch.core import adam
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+    from ht3dgs_torch.train import step as step_lib
+
+    mesh_lib.init_distributed(
+        backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+        world=1, rank_=0, device=device, timeout=300)
+    try:
+        import torch.distributed as dist
+
+        print(f"phase 11a: process group {dist.get_backend()}, world "
+              f"{dist.get_world_size()}")
+        step = mesh_lib.build_hierarchy_step(
+            mesh_lib.make_mesh(1, 1), H, W, mode="tiled",
+            tile_args=TILE_ARGS)
+        torch.cuda.synchronize()
+        k0 = launch_counts(B)
+        t0 = time.perf_counter()
+        got = step(state, adam.init(state.params()), cam, target, LRS)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        k = {n: v - k0[n] for n, v in launch_counts(B).items()}
+    finally:
+        mesh_lib.shutdown()
+    ref = step_lib.gaussian_train_step(
+        state, adam.init(state.params()), cam, target, LRS, mode="tiled",
+        tile_args=TILE_ARGS)
+    compare_step(got, ref, "11a (1, 1) NCCL hierarchy step")
+    print(f"phase 11a: one step {ms:.1f} ms, launches {k}")
+    check(all(v >= 1 for v in k.values()), "11a: K1 and K2 launched")
+    return k
+
+
+def mesh_steps_rank(rank: int, seed: int, targs: dict, compact_n: int):
+    """11b on one of MESH_RANKS gloo ranks sharing the card: the hierarchy
+    step on a (1, 4) mesh without and with compact_n, and the Gaussian-
+    sharded step; rank 0 gathers each result and holds it to
+    gaussian_train_step on the same inputs."""
+    import torch
+
+    from ht3dgs_torch.core import adam
+    from ht3dgs_torch.core.camera import intrinsics_from_fov, make_camera
+    from ht3dgs_torch.core.gaussians import PARAM_FIELDS
+    from ht3dgs_torch.parallel import comm, gauss_shard
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+    from ht3dgs_torch.raster import blend as B
+    from ht3dgs_torch.train import step as step_lib
+
+    device = mesh_lib.rank_device("cuda")
+    timer = CommTimer()
+    state = make_scene(seed, device)
+    cam = make_camera(H, W, intrinsics_from_fov(1.2, H, W), device=device)
+    target = step_lib.render_eval(state, cam, mode="tiled",
+                                  tile_args=TILE_ARGS)["image"]
+    state = mesh_scene(state, seed, device)
+    mesh = mesh_lib.make_mesh(1, MESH_RANKS)
+    axis = mesh.tile_axis
+    cases = [("hierarchy", targs, None),
+             ("hierarchy compact_n", dict(targs, compact_n=compact_n), None),
+             ("gauss-sharded", dict(targs, compact_n=compact_n), "gauss")]
+    out, kept = {}, {}
+    for name, ta, kind in cases:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        B.blend_fwd.launches = B.blend_bwd.launches = 0
+        c0 = timer.snapshot()
+        t0 = time.perf_counter()
+        if kind == "gauss":
+            st = gauss_shard.shard_state(state, MESH_RANKS)[rank]
+            step = gauss_shard.build_gauss_sharded_step(
+                mesh, H, W, cull_cap=None, tile_args=ta)
+        else:
+            st = state
+            step = mesh_lib.build_hierarchy_step(mesh, H, W, mode="tiled",
+                                                 tile_args=ta)
+        res = step(st, adam.init(st.params()), cam, target, LRS)
+        torch.cuda.synchronize()
+        c1 = timer.snapshot()
+        out[name] = dict(
+            ms=1e3 * (time.perf_counter() - t0),
+            all_reduce_ms=1e3 * (c1[0]["all_reduce"] - c0[0]["all_reduce"]),
+            all_reduces=c1[1]["all_reduce"] - c0[1]["all_reduce"],
+            peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            launches={"blend_fwd": B.blend_fwd.launches,
+                      "blend_bwd": B.blend_bwd.launches},
+            n_dropped_compact=int(res[2]["n_dropped_compact"]))
+        if kind == "gauss":
+            # rank 0 needs every shard's moments and statistics
+            s1, o1, m1 = res
+            with torch.no_grad():
+                gath = {f: comm.gather_rows(o1.m[f], axis)
+                        for f in PARAM_FIELDS}
+                stats = {f: comm.gather_rows(getattr(s1, f), axis)
+                         for f in ("grad_accum", "max_radii2d")}
+            res = (dataclasses.replace(state, **stats),
+                   adam.AdamState(m=gath, v=gath, step=o1.step), m1)
+        if rank == 0:
+            kept[name] = res
+        del res, step
+        torch.cuda.empty_cache()
+    if rank != 0:
+        return {"cases": out}
+    ref = step_lib.gaussian_train_step(
+        state, adam.init(state.params()), cam, target, LRS, mode="tiled",
+        tile_args=targs)
+    errs = {name: compare_step(kept[name], ref, f"11b {name}",
+                               params=name != "gauss-sharded")
+            for name in kept}
+    return {"cases": out, "errors": errs,
+            "ref_drops": {k: int(ref[2][k]) for k in (
+                "n_dropped", "n_dropped_m", "n_dropped_tile")}}
+
+
+def tier_mesh_rank(rank: int, seed: int, workdir: str):
+    """11c on one of MESH_RANKS gloo ranks sharing the card: the full
+    tier's hierarchical_training on a (2, 2) mesh, then the host share of
+    a root step on a (1, 4) mesh."""
+    import torch
+
+    from ht3dgs_torch.parallel import checks, comm
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+    from ht3dgs_torch.raster import blend as B
+    from ht3dgs_torch.train import hierarchy, phase_a
+    from ht3dgs_torch.train import step as step_lib
+
+    device = mesh_lib.rank_device("cuda")
+    timer = CommTimer()
+    os.chdir(workdir)
+    tr, scene = tier_trainer(device, seed, mesh=(2, 2),
+                             write_depth=rank == 0)
+    comm.broadcast_bytes(b"", 0, device)   # rank 0 wrote the depths
+    counter = StepCounter(B, tr.timer)
+    sections = [0]
+
+    def counted_share(fn):
+        def share(*a, **kw):
+            sections[0] += 1
+            return fn(*a, **kw)
+        return share
+
+    def counted_builder(fn):
+        def build(*a, **kw):
+            step = fn(*a, **kw)
+
+            def counted(*sa, **skw):
+                counter.steps[counter.current] += 1
+                return step(*sa, **skw)
+            return counted
+        return build
+
+    originals = [(m, n, counter.wrap(m, n)) for m, n in (
+        (phase_a, "_fit_step"), (phase_a, "_pose_step"),
+        (step_lib, "gaussian_train_step"))]
+    patches = [(mesh_lib, "build_hierarchy_step", counted_builder),
+               (hierarchy.HTGaussianTrainer, "_share_trainer_state",
+                counted_share)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, make in patches:
+        setattr(m, n, make(getattr(m, n)))
+    try:
+        B.blend_fwd.launches = B.blend_bwd.launches = 0
+        t0 = time.perf_counter()
+        bundle = tr.hierarchical_training()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(B)
+    finally:
+        for m, n, fn in originals + saved:
+            setattr(m, n, fn)
+    comm_s, comm_n = timer.snapshot()
+    res = dict(
+        wall=wall, launches=launches, summary=tr.timer.summary(),
+        steps=dict(counter.steps),
+        phase_launches={k: dict(v) for k, v in counter.launches.items()},
+        digest=checks.state_digest(bundle.state),
+        frames=bundle.to_visit_frames, sections=sections[0],
+        comm_s=comm_s, comm_n=comm_n,
+        capacity=(int(bundle.state.n_live()), bundle.state.capacity))
+    if rank == 0:
+        res["rot_err"] = rotation_errors(tr, scene)
+        res["psnr"] = tr.evaluate_on_training_images(save_images=False)
+
+    # one root step on a (1, 4) mesh, timed as phase 8's root step
+    mesh = mesh_lib.make_mesh(1, MESH_RANKS)
+    step = mesh_lib.build_hierarchy_step(mesh, TIER_H, TIER_W, mode="tiled",
+                                         tile_args=tr._tile_args)
+    cam = tr.camera_for(0, pose=bundle.get_RT(0))
+    gt = tr.device_frame("rgb", 0)
+    lrs = tr._lrs(1, bundle)
+    calls = [0]
+
+    def one_step():
+        calls[0] += 1
+        return step(bundle.state, bundle.opt, cam, gt, lrs)
+
+    c0 = timer.snapshot()
+    res["step_ms"], res["busy_ms"] = host_share(one_step)
+    c1 = timer.snapshot()
+    res["step_all_reduce_ms"] = 1e3 * (c1[0]["all_reduce"]
+                                       - c0[0]["all_reduce"]) / calls[0]
+    return res
+
+
+def phase_mesh(B, device, seed: int, state, cam) -> dict:
+    """11b and 11c: MESH_RANKS processes on the card over gloo. Returns the
+    kernel launches of every rank together."""
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+
+    longest, rows = tile_loads(state, cam, MESH_RANKS)
+    targs = mesh_tile_args(longest)
+    compact_n = min(N, round128(N * COMPACT_FRAC / MESH_RANKS))
+    print(f"phase 11b: longest tile list {longest} (full image and "
+          f"{MESH_RANKS} row blocks), at most {rows} rows with entries in "
+          f"a block; tile args {targs}, compact_n {compact_n}")
+    t0 = time.perf_counter()
+    res = mesh_lib.spawn(mesh_steps_rank, MESH_RANKS, backend="gloo",
+                         device="cuda", args=(seed, targs, compact_n),
+                         timeout=600, threads=2)
+    print(f"phase 11b: {MESH_RANKS} gloo ranks on the card, "
+          f"{time.perf_counter() - t0:.1f} s; single-device step's drops "
+          f"{res[0]['ref_drops']}")
+    launches = {"blend_fwd": 0, "blend_bwd": 0}
+    for r, rr in enumerate(res):
+        for name, c in rr["cases"].items():
+            print(f"phase 11b rank {r} [{name}]: {c['ms']:.1f} ms, "
+                  f"{c['all_reduces']} all-reduces {c['all_reduce_ms']:.1f}"
+                  f" ms, peak {c['peak_gib']:.3f} GiB, n_dropped_compact "
+                  f"{c['n_dropped_compact']}, launches {c['launches']}")
+            check(all(v >= 1 for v in c["launches"].values()),
+                  f"11b rank {r} [{name}]: K1 and K2 launched")
+            for k, v in c["launches"].items():
+                launches[k] += v
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        res = mesh_lib.spawn(tier_mesh_rank, MESH_RANKS, backend="gloo",
+                             device="cuda", args=(seed, workdir),
+                             timeout=900, threads=2)
+        total = time.perf_counter() - t0
+    r0 = res[0]
+    print(f"phase 11c: hierarchical_training on a (2, 2) mesh of "
+          f"{MESH_RANKS} gloo ranks: {r0['wall']:.1f} s (spawn and all "
+          f"{total:.1f} s); root {r0['capacity'][0]} live Gaussians of "
+          f"{r0['capacity'][1]}")
+    for r, rr in enumerate(res):
+        for name, ph in rr["summary"].items():
+            n = rr["steps"].get(name, 0)
+            per = (f"{1e3 * ph['total_s'] / n:.2f} ms per step" if n
+                   else "no steps")
+            print(f"phase 11c rank {r} [{name}]: {ph['total_s']:.3f} s "
+                  f"x{ph['count']}, {n} steps, {per}, launches "
+                  f"{rr['phase_launches'].get(name, {})}")
+            for k in ("blend_fwd", "blend_bwd"):
+                check(rr["phase_launches"].get(name, {}).get(k, 0) >= n,
+                      f"11c rank {r} [{name}]: {k} launched once per step")
+        n_steps = sum(rr["steps"].values())
+        n_lock = sum(rr["steps"].get(k, 0)
+                     for k in ("leaf_parallel", "nonleaf_parallel"))
+        ar = rr["comm_s"]["all_reduce"]
+        bc = rr["comm_s"]["broadcast"]
+        print(f"phase 11c rank {r}: {n_steps} steps ({n_lock} lockstep); "
+              f"all_reduce {rr['comm_n']['all_reduce']} calls {ar:.3f} s "
+              f"({1e3 * ar / max(1, n_lock):.3f} ms per lockstep step); "
+              "broadcast "
+              f"{rr['comm_n']['broadcast']} calls {bc:.3f} s over "
+              f"{rr['sections']} sections "
+              f"({1e3 * bc / max(1, rr['sections']):.1f} ms per section); "
+              f"root step on a (1, {MESH_RANKS}) mesh: "
+              f"median {rr['step_ms']:.3f} ms, device busy "
+              f"{rr['busy_ms']:.3f} ms, host share "
+              f"{100 * (1 - rr['busy_ms'] / rr['step_ms']):.1f}%, "
+              f"all-reduce {rr['step_all_reduce_ms']:.3f} ms per step")
+        for k, v in rr["launches"].items():
+            launches[k] += v
+    print(f"phase 11c: relative-pose rotation error, degrees: max "
+          f"{max(r0['rot_err']):.4f}; train-view mean PSNR "
+          f"{r0['psnr']:.3f} dB; root digests "
+          f"{sorted({rr['digest'][:16] for rr in res})}")
+    check(len({rr["digest"] for rr in res}) == 1,
+          "11c: every rank holds the same root (SHA-256)")
+    check(all(rr["frames"] == list(range(TIER_FRAMES)) for rr in res),
+          "11c: the root covers every frame")
+    check(max(r0["rot_err"]) < MAX_ROT_DEG,
+          f"11c: relative-pose rotation error < {MAX_ROT_DEG} deg")
+    check(r0["psnr"] > MIN_PSNR, f"11c: train-view mean PSNR > {MIN_PSNR}")
+    check({"leaf_parallel", "nonleaf_parallel"} <= set(r0["summary"]),
+          "11c: leaves and the root ran on the mesh")
+    return launches
+
+
 def host_share(fn, reps: int = 20, profiled: int = 5):
     """(median wall ms of fn() with a synchronise, device busy ms per call
     under torch.profiler: the sum of its kernel times)."""
@@ -1305,10 +1800,19 @@ def main() -> None:
         eval_launches = phase_eval(B, device, ctx)
     # 10. the networks
     phase_networks(device, args.seed, ctx[2].frames)
+    del ctx
+    # 11. multi-device: NCCL at world size 1, then gloo ranks on the card
+    mesh_state = mesh_scene(state, args.seed, device)
+    nccl_launches = phase_nccl(B, mesh_state, cam, trained[2], device)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(B, device, args.seed, mesh_state, cam)
+    del mesh_state
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
                    "hierarchy": hier_launches[rec["name"]],
-                   "eval": eval_launches[rec["name"]]}
+                   "eval": eval_launches[rec["name"]],
+                   "mesh": nccl_launches[rec["name"]]
+                   + mesh_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:

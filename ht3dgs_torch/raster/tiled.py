@@ -14,6 +14,15 @@ Entries past M and lists past K drop farthest-first; the counters
 n_dropped_m and n_dropped_tile report them. Rows k >= count of a tile alias
 the next tile's entries; the blend never reads them and its backward gives
 them exact zeros.
+
+compact_n keeps only the nearest `compact_n` rows that emit entries (the
+zero-span rows already sort last, so this is a slice of the depth order)
+and sizes M from it: under tile sharding each rank's row-block camera rejects
+the Gaussians outside its block, so the expansion shrinks with the block.
+The entries of the live rows past it are counted in n_dropped_compact.
+route_bf16 rounds each entry's cotangent to bfloat16 before the float32
+sums of the backward, as the JAX package's option does (its int32 pair
+packing is a TPU sort workaround and is not ported).
 """
 
 from __future__ import annotations
@@ -42,15 +51,17 @@ def _pack_attr_rows(proj: Projected) -> torch.Tensor:
 
 
 def _binning_impl(attrs, valid, depths, height, width, tile_h, tile_w,
-                  max_per_tile, dup_factor):
+                  max_per_tile, dup_factor, compact_n):
     """Returns (ent [T,K,16], meta [T,4] i32, total, n_dropped_m,
-    n_dropped_tile, csrc [T,K] int64 original row of every entry)."""
+    n_dropped_tile, n_dropped_compact, csrc [T,K] int64 original row of
+    every entry)."""
     N = attrs.shape[0]
     dev = attrs.device
     ntx = _cdiv(width, tile_w)
     nty = _cdiv(height, tile_h)
     T = ntx * nty
-    M = max(int(round(N * dup_factor)), 1)
+    Nc = min(compact_n, N) if compact_n else N
+    M = max(int(round(Nc * dup_factor)), 1)
     K = max_per_tile
 
     # tile rectangles from the tight per-axis extents (getRect semantics)
@@ -65,13 +76,18 @@ def _binning_impl(attrs, valid, depths, height, width, tile_h, tile_w,
     # depth order; zero-span rows go last (they emit no entries)
     dkey = torch.where(span > 0, depths, torch.inf)
     _, order = torch.sort(dkey, stable=True)
+    if Nc < N:
+        # the rows with entries lead the order: keep the nearest Nc
+        total_all = span.sum()
+        order = order[:Nc]
     span_s = span[order]
     cum = torch.cumsum(span_s, 0)
     total = cum[-1]
+    nd_compact = total_all - total if Nc < N else torch.zeros_like(total)
 
     # slot m -> the depth-sorted Gaussian whose segment holds it
     m = torch.arange(M, device=dev)
-    seg = torch.searchsorted(cum, m, right=True).clamp(max=N - 1)
+    seg = torch.searchsorted(cum, m, right=True).clamp(max=Nc - 1)
     local = m - (cum[seg] - span_s[seg])
     sx = span_x[order][seg].clamp(min=1)
     tx = x0[order][seg] + local % sx
@@ -97,7 +113,7 @@ def _binning_impl(attrs, valid, depths, height, width, tile_h, tile_w,
     ent = attrs[csrc]
     nd_m = torch.clamp(total - M, min=0)
     nd_tile = torch.clamp(ends - starts - K, min=0).sum()
-    return ent, meta, total, nd_m, nd_tile, csrc
+    return ent, meta, total, nd_m, nd_tile, nd_compact, csrc
 
 
 class _Binning(torch.autograd.Function):
@@ -106,20 +122,23 @@ class _Binning(torch.autograd.Function):
     atomics on the card, so the summation order varies from run to run."""
 
     @staticmethod
-    def forward(ctx, attrs, valid, depths, geom):
-        ent, meta, total, nd_m, nd_tile, csrc = _binning_impl(
-            attrs, valid, depths, *geom)
+    def forward(ctx, attrs, valid, depths, geom, compact_n, route_bf16):
+        ent, meta, total, nd_m, nd_tile, nd_c, csrc = _binning_impl(
+            attrs, valid, depths, *geom, compact_n)
         ctx.save_for_backward(csrc)
         ctx.n_rows = attrs.shape[0]
-        ctx.mark_non_differentiable(meta, total, nd_m, nd_tile)
-        return ent, meta, total, nd_m, nd_tile
+        ctx.route_bf16 = route_bf16
+        ctx.mark_non_differentiable(meta, total, nd_m, nd_tile, nd_c)
+        return ent, meta, total, nd_m, nd_tile, nd_c
 
     @staticmethod
     def backward(ctx, d_ent, *_):
         (csrc,) = ctx.saved_tensors
+        if ctx.route_bf16:
+            d_ent = d_ent.to(torch.bfloat16).to(d_ent.dtype)
         d_attrs = d_ent.new_zeros(ctx.n_rows, ATTRS)
         d_attrs.index_add_(0, csrc.reshape(-1), d_ent.reshape(-1, ATTRS))
-        return d_attrs, None, None, None
+        return d_attrs, None, None, None, None, None
 
 
 def build_tile_lists_from_rows(attrs, valid, depths, height: int, width: int,
@@ -127,12 +146,12 @@ def build_tile_lists_from_rows(attrs, valid, depths, height: int, width: int,
                                max_per_tile: int = 1024, dup_factor=16,
                                route_bf16: bool = False, compact_n=None):
     """Binning of a packed [N, 16] row table. Returns (ent [T,K,16],
-    meta [T,4] int32, total, n_dropped_m, n_dropped_tile)."""
-    if route_bf16 or compact_n:
-        raise NotImplementedError(
-            "route_bf16 and compact_n are not ported yet")
+    meta [T,4] int32, total, n_dropped_m, n_dropped_tile,
+    n_dropped_compact)."""
     geom = (height, width, tile_h, tile_w, max_per_tile, dup_factor)
-    return _Binning.apply(attrs, valid, depths, geom)
+    return _Binning.apply(attrs, valid, depths, geom,
+                          int(compact_n) if compact_n else 0,
+                          bool(route_bf16))
 
 
 def build_tile_lists(proj: Projected, height: int, width: int,
@@ -149,16 +168,29 @@ def rasterize_tiled(proj: Projected, height: int, width: int,
                     tile_w: int = 16, max_per_tile: int = 1024,
                     dup_factor=16, route_bf16: bool = False,
                     compact_n=None) -> Dict[str, torch.Tensor]:
-    ent, meta, total, nd_m, nd_tile = build_tile_lists(
-        proj, height, width, tile_h, tile_w, max_per_tile, dup_factor,
-        route_bf16, compact_n)
+    return rasterize_from_rows(
+        _pack_attr_rows(proj), proj.valid, proj.depths, height, width,
+        bg_color, tile_h, tile_w, max_per_tile, dup_factor, route_bf16,
+        compact_n)
+
+
+def rasterize_from_rows(attrs, valid, depths, height: int, width: int,
+                        bg_color: torch.Tensor, tile_h: int = 16,
+                        tile_w: int = 16, max_per_tile: int = 1024,
+                        dup_factor=16, route_bf16: bool = False,
+                        compact_n=None) -> Dict[str, torch.Tensor]:
+    """rasterize_tiled over a packed [N, 16] row table (the Gaussian-
+    sharded step hands it the rows gathered from every rank)."""
+    ent, meta, total, nd_m, nd_tile, nd_c = build_tile_lists_from_rows(
+        attrs, valid, depths, height, width, tile_h, tile_w, max_per_tile,
+        dup_factor, route_bf16, compact_n)
     rgb_t, t_t, dep_t = blend(ent, meta, tile_h, tile_w)
     return _assemble(rgb_t, t_t, dep_t, height, width, tile_h, tile_w,
-                     bg_color, total, nd_m, nd_tile)
+                     bg_color, total, nd_m, nd_tile, nd_c)
 
 
 def _assemble(rgb, t_buf, dep, height, width, tile_h, tile_w, bg_color,
-              total, nd_m, nd_tile) -> Dict[str, torch.Tensor]:
+              total, nd_m, nd_tile, nd_c) -> Dict[str, torch.Tensor]:
     ntx = _cdiv(width, tile_w)
     nty = _cdiv(height, tile_h)
 
@@ -169,14 +201,13 @@ def _assemble(rgb, t_buf, dep, height, width, tile_h, tile_w, bg_color,
 
     t_img = untile(t_buf)
     image = untile(rgb) + t_img[..., None] * bg_color[None, None, :]
-    zero = torch.zeros_like(nd_m)
     return {
         "image": torch.clamp(image, 0.0, 1.0),
         "depth": untile(dep),
         "alpha": 1.0 - t_img,
         "n_entries": total,
-        "n_dropped": nd_m + nd_tile,
+        "n_dropped": nd_m + nd_tile + nd_c,
         "n_dropped_m": nd_m,
         "n_dropped_tile": nd_tile,
-        "n_dropped_compact": zero,
+        "n_dropped_compact": nd_c,
     }

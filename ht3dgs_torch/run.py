@@ -12,6 +12,10 @@ Modes:
   render     novel-trajectory video from a checkpoint
 
 Everything runs on the card unless `main` is called with device="cpu".
+With --distributed (under `torchrun --nproc-per-node N -m ht3dgs_torch
+--distributed ...`) every rank trains on cuda:LOCAL_RANK over NCCL, which
+needs one card per rank; the (segment, tile) mesh is pipe.mesh_segments x
+pipe.mesh_tiles ranks.
 """
 
 import sys
@@ -24,10 +28,17 @@ def main(argv=None, device="cuda"):
     from .utils.profiling import torch_trace
 
     model, pipe, optim, args = configs_from_cli(argv)
+    rank = 0
     if getattr(pipe, "distributed", False):
-        raise NotImplementedError(
-            "pipe.distributed: multi-host training is not ported yet "
-            "(ROADMAP, P15)")
+        # torch.distributed first (torchrun's environment): every rank runs
+        # this program on its own device, cuda:LOCAL_RANK, NCCL on cards
+        from .parallel import mesh
+
+        n = mesh.init_distributed(device=device)
+        device, rank = mesh.rank_device(device), mesh.rank()
+        print(f"[distributed] process {rank}/{n} on {device}")
+    if rank != 0 and args.mode in ("eval_pose", "eval_nvs", "render"):
+        return      # the eval modes run on rank 0 alone
     start = time.time()
 
     trainer = HTGaussianTrainer(model.source_path, model, pipe, optim,

@@ -16,7 +16,20 @@ Randomness: `self.rng` (Python's `random.Random(seed)`, drawn in the JAX
 trainer's order, so the frame-sampling stream is the same) and `self.gen`,
 a `torch.Generator` on the trainer's device that draws the split noise of
 densify in place of the JAX trainer's key. The eval modes live in
-`train.evals`. Multi-device training is not ported yet (ROADMAP).
+`train.evals`.
+
+Several ranks (torch.distributed, one process per device): every rank runs
+this orchestrator, and at the end of each section (a Phase A batch, a leaf
+chunk, a non-leaf chunk, a merge, a sequential segment) every rank holds
+bit-equal bundles, poses, random streams and iteration count. With
+pipe.mesh_segments x pipe.mesh_tiles ranks or more, leaves and sibling
+non-leaf segments train on the (segment, tile) mesh (`parallel_leaves`,
+`parallel_nonleaf`) and each segment's bundle is broadcast from its first
+rank; Phase A deals the models of each batch over the ranks. Sequential
+sections run on rank 0 and broadcast its results: `index_add_` on the card
+sums in no fixed order, so ranks that each ran them would drift apart.
+Only rank 0 writes crumbs, checkpoints, poses and logs; every rank reads
+crumbs on resume.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import hashlib
+import io
 import json
 import os
 import pickle
@@ -40,10 +54,13 @@ from ..core import gaussians as G
 from ..core import se3
 from ..core.gaussians import GaussianState
 from ..data.pointcloud import PointCloud
+from ..parallel import comm
+from ..parallel import mesh as mesh_lib
 from ..utils.image import save_image
 from ..utils.profiling import PhaseTimer
 from . import phase_a as pa
 from . import step as step_lib
+from .lockstep import pad_rows
 from .losses import psnr as psnr_fn
 from .trainer import GaussianTrainer
 
@@ -113,6 +130,7 @@ class HTGaussianTrainer(GaussianTrainer):
             self._tile_args = tuple(sorted(ta.items()))
         self._steps_since_tune = 0
         self.timer = PhaseTimer()
+        self.rank, self.world = mesh_lib.rank(), mesh_lib.world_size()
 
     # ------------------------------------------------------------------ #
     # model construction
@@ -227,18 +245,7 @@ class HTGaussianTrainer(GaussianTrainer):
                 f"HT3DGS_MAX_CAPACITY={max_cap}; densify overflow will "
                 f"drop new Gaussians")
             return
-
-        def pad(x):
-            return torch.cat([x, x.new_zeros((cap,) + x.shape[1:])])
-
-        bundle.state = dataclasses.replace(
-            st, **{f: pad(getattr(st, f)) for f in G.PARAM_FIELDS},
-            live=pad(st.live), max_radii2d=pad(st.max_radii2d),
-            grad_accum=pad(st.grad_accum), grad_denom=pad(st.grad_denom))
-        bundle.opt = adam_lib.AdamState(
-            m={k: pad(v) for k, v in bundle.opt.m.items()},
-            v={k: pad(v) for k, v in bundle.opt.v.items()},
-            step=bundle.opt.step)
+        bundle.state, bundle.opt = pad_rows(st, bundle.opt, cap)
         self.n_capacity_grows += 1
         self.logger.info(f"capacity grown {cap} -> {2 * cap} "
                          f"(growth #{self.n_capacity_grows})")
@@ -380,7 +387,10 @@ class HTGaussianTrainer(GaussianTrainer):
         """Phase A in chunks of phase_a_batch pairs, the fits of a chunk
         interleaved model by model (train.phase_a). Every chunk's models
         share one capacity, so their binning capacities (M) match the JAX
-        trainer's."""
+        trainer's. With several ranks the models of each chunk are dealt
+        over them (model k to rank k mod world): each rank fits its own, and
+        the poses are gathered to every rank. The fits are independent, so
+        the poses are a one-process run's."""
         B = self.pipe_cfg.phase_a_batch
         pairs = [(f, f - 1) for f in range(1, self.seq_len)
                  if f"rel_pose_{f - 1}_to_{f}" not in self.pose_dict]
@@ -388,51 +398,50 @@ class HTGaussianTrainer(GaussianTrainer):
             return
         use_vfi = (self.pipe_cfg.train_pose_mode == "vfi"
                    and self.vfi_provider is not None)
-        self.logger.info(f"[Phase A/batched] {len(pairs)} pairs, batch {B}")
+        self.logger.info(f"[Phase A/batched] {len(pairs)} pairs, batch {B}, "
+                         f"{self.world} ranks")
 
-        all_pcds = {prev: self.prepare_pcd(prev) for (_, prev) in pairs}
+        def mine(chunk):
+            return [p for k, p in enumerate(chunk)
+                    if k % self.world == self.rank]
+
+        own = [p for i0 in range(0, len(pairs), B)
+               for p in mine(pairs[i0:i0 + B])]
+        all_pcds = {prev: self.prepare_pcd(prev) for (_, prev) in own}
         all_vfi_pcds = {}
         if use_vfi:
             all_vfi_pcds = {prev: self.prepare_pcd(prev, use_vfi_frame=True)
-                            for (_, prev) in pairs}
-        cap = max(_round_capacity(int(len(p.points) * 1.5))
-                  for p in list(all_pcds.values())
-                  + list(all_vfi_pcds.values()))
+                            for (_, prev) in own}
+        need = max([_round_capacity(int(len(p.points) * 1.5))
+                    for p in list(all_pcds.values())
+                    + list(all_vfi_pcds.values())] or [0])
+        world_axis = comm.Axis(mesh_lib.world_group(), self.rank, self.world)
+        cap = int(world_axis.all_reduce_(torch.tensor(
+            [float(need)], device=self.device), "max")[0])
 
         for i0 in range(0, len(pairs), B):
             chunk = pairs[i0:i0 + B]
-            cams = [self.camera_for(prev) for (_, prev) in chunk]
-            cams_ref = [self.camera_for(f) for (f, _) in chunk]
-            gts_ref = [self.device_frame("rgb", f) for (f, _) in chunk]
-            states = self._batched_fit(
-                [self.make_model(all_pcds[prev], capacity=cap)
-                 for (_, prev) in chunk], cams,
-                [self.device_frame("rgb", prev) for (_, prev) in chunk])
+            sub = mine(chunk)
+            # [pair, (rel, half-step 1, half-step 2)], each pair's row
+            # written by the rank that fitted it
+            rels = np.zeros((len(chunk), 3, 4, 4), np.float32)
+            if sub:
+                rows = [k for k in range(len(chunk))
+                        if k % self.world == self.rank]
+                rels[rows] = self._fit_pairs(sub, cap, all_pcds,
+                                             all_vfi_pcds, use_vfi)
+            if self.world > 1:
+                rels = world_axis.all_reduce_(torch.as_tensor(
+                    rels, device=self.device)).cpu().numpy()
             self.logger.info(f"[Phase A/batched] fitted pairs {chunk}")
-
-            if not use_vfi:
-                rels = self._batched_pose(states, cams_ref, gts_ref)
-                for (f, prev), rel in zip(chunk, rels):
-                    self.pose_dict[f"rel_pose_{prev}_to_{f}"] = rel
-                self._save_partial_poses()
-                continue
-
-            # VFI: fit a second set of local models to the midway frames,
-            # then compose the two half-step poses
-            gts_v = [self.device_frame("vfi", prev) for (_, prev) in chunk]
-            states_v = self._batched_fit(
-                [self.make_model(all_vfi_pcds[prev], capacity=cap)
-                 for (_, prev) in chunk], cams, gts_v)
-            # half-step 1: base model -> VFI frame; 2: VFI model -> frame f
-            rel1 = self._batched_pose(states, cams, gts_v)
-            rel2 = self._batched_pose(states_v, cams_ref, gts_ref)
-            for (f, prev), r1, r2 in zip(chunk, rel1, rel2):
-                self.pose_dict[f"rel_pose_{prev}_to_{prev}.5"] = r1
-                self.pose_dict[f"rel_pose_{prev}.5_to_{f}"] = r2
-                self.pose_dict[f"rel_pose_{prev}_to_{f}"] = r2 @ r1
+            for (f, prev), r in zip(chunk, rels):
+                self.pose_dict[f"rel_pose_{prev}_to_{f}"] = r[0]
+                if use_vfi:
+                    self.pose_dict[f"rel_pose_{prev}_to_{prev}.5"] = r[1]
+                    self.pose_dict[f"rel_pose_{prev}.5_to_{f}"] = r[2]
             self._save_partial_poses()
 
-        # a non-finite batched result falls back to the sequential fit
+        # a non-finite batched result is refitted by the sequential path
         for (f, prev) in pairs:
             keys = [k for k in (f"rel_pose_{prev}_to_{f}",
                                 f"rel_pose_{prev}_to_{prev}.5",
@@ -444,7 +453,33 @@ class HTGaussianTrainer(GaussianTrainer):
                     f"({prev}->{f}); falling back to sequential fit")
                 for k in keys:
                     self.pose_dict.pop(k, None)
-                self.compute_relative_pose(f, prev)
+
+    def _fit_pairs(self, pairs, cap, all_pcds, all_vfi_pcds, use_vfi):
+        """[len(pairs), 3, 4, 4]: each pair's relative pose and, with VFI,
+        its two half-steps (zeros without)."""
+        out = np.zeros((len(pairs), 3, 4, 4), np.float32)
+        cams = [self.camera_for(prev) for (_, prev) in pairs]
+        cams_ref = [self.camera_for(f) for (f, _) in pairs]
+        gts_ref = [self.device_frame("rgb", f) for (f, _) in pairs]
+        states = self._batched_fit(
+            [self.make_model(all_pcds[prev], capacity=cap)
+             for (_, prev) in pairs], cams,
+            [self.device_frame("rgb", prev) for (_, prev) in pairs])
+        if not use_vfi:
+            out[:, 0] = self._batched_pose(states, cams_ref, gts_ref)
+            return out
+        # VFI: fit a second set of local models to the midway frames, then
+        # compose the two half-step poses
+        gts_v = [self.device_frame("vfi", prev) for (_, prev) in pairs]
+        states_v = self._batched_fit(
+            [self.make_model(all_vfi_pcds[prev], capacity=cap)
+             for (_, prev) in pairs], cams, gts_v)
+        # half-step 1: base model -> VFI frame; 2: VFI model -> frame f
+        out[:, 1] = self._batched_pose(states, cams, gts_v)
+        out[:, 2] = self._batched_pose(states_v, cams_ref, gts_ref)
+        for r in out:
+            r[0] = r[2] @ r[1]
+        return out
 
     # ------------------------------------------------------------------ #
     # partition
@@ -742,14 +777,23 @@ class HTGaussianTrainer(GaussianTrainer):
     def _phase_a(self):
         if getattr(self.pipe_cfg, "phase_a_batch", 0) > 0:
             self.compute_relative_poses_batched()
-        for fidx in range(1, self.seq_len):
-            self.compute_relative_pose(fidx, fidx - 1)
+
+        def sequential():
+            for fidx in range(1, self.seq_len):
+                self.compute_relative_pose(fidx, fidx - 1)
+
+        self._on_rank0(sequential)
+
+    def _mesh_ranks(self, S: int, n_tiles: int) -> bool:
+        """Whether the world holds an S x T mesh (the JAX trainer's
+        len(jax.devices()) >= S * T); logs the path taken."""
+        ok = self.world >= S * n_tiles
+        self.logger.info(
+            f"[mesh] {S} x {n_tiles} on {self.world} ranks: "
+            + ("mesh path" if ok else "sequential path"))
+        return ok
 
     def hierarchical_training(self):
-        if self.pipe_cfg.mesh_segments > 1 or self.pipe_cfg.mesh_tiles > 1:
-            raise NotImplementedError(
-                "mesh_segments / mesh_tiles > 1: multi-device training is "
-                "not ported yet (ROADMAP, P15)")
         self.derive_schedule()
         os.makedirs(f"{self.result_path}/chkpnt", exist_ok=True)
         os.makedirs(f"{self.result_path}/pose", exist_ok=True)
@@ -767,35 +811,114 @@ class HTGaussianTrainer(GaussianTrainer):
         bundles: Dict[int, List[Optional[ModelBundle]]] = {
             lv: [None] * len(lists[lv]) for lv in lists}
 
+        # several ranks: leaf segments train on the (segment, tile) mesh in
+        # chunks of mesh_segments (leftovers run sequentially)
+        S = max(1, self.pipe_cfg.mesh_segments)
+        n_tiles = max(1, self.pipe_cfg.mesh_tiles)
+        multi = S > 1 or n_tiles > 1
+        leaf_lists = lists[self.train_level]
+        if multi and self._mesh_ranks(S, n_tiles):
+            from . import parallel_leaves as pl
+
+            for i0 in range(0, len(leaf_lists) - (len(leaf_lists) % S), S):
+                chunk = leaf_lists[i0:i0 + S]
+                tags = [f"lv{self.train_level}_seg{i0 + k}"
+                        for k in range(len(chunk))]
+                crumbs = [self._load_bundle_breadcrumb(t) for t in tags]
+                if all(c is not None for c in crumbs):
+                    for k, b in enumerate(crumbs):
+                        bundles[self.train_level][i0 + k] = b
+                    self._commit_crumb_rng(crumbs[-1])
+                    continue
+                mesh = mesh_lib.make_mesh(S, n_tiles)
+                with self.timer.phase("leaf_parallel"):
+                    trained = pl.train_leaf_segments_parallel(self, chunk,
+                                                              mesh)
+                for k, b in enumerate(trained):
+                    bundles[self.train_level][i0 + k] = b
+                    self._save_bundle_breadcrumb(b, tags[k])
+
         for level in range(self.train_level, -1, -1):
             seg_lists = lists[level]
+
+            # sibling non-leaf segments are data-independent until their
+            # own merge: chunks of Sp of them run phase 1/2 at once (Sp = 1
+            # still splits the root's image rows over the tile ranks)
+            nonleaf_pretrained = set()
+            if level < self.train_level and multi:
+                from . import parallel_nonleaf as pnl
+
+                Sp = min(S, len(seg_lists))
+                if self._mesh_ranks(Sp, n_tiles):
+                    for i0 in range(0, len(seg_lists)
+                                    - (len(seg_lists) % Sp), Sp):
+                        idxs = list(range(i0, i0 + Sp))
+                        tags = [f"lv{level}_seg{i}" for i in idxs]
+                        crumbs = [self._load_bundle_breadcrumb(t)
+                                  for t in tags]
+                        if all(c is not None for c in crumbs):
+                            for i, c in zip(idxs, crumbs):
+                                bundles[level][i] = c
+                            self._commit_crumb_rng(crumbs[-1])
+                            nonleaf_pretrained.update(idxs)
+                            continue
+                        chunk = [bundles[level][i] for i in idxs]
+                        kids = ([tuple(bundles[level + 1][2 * i: 2 * i + 2])
+                                 for i in idxs] if use_base else None)
+                        mesh = mesh_lib.make_mesh(Sp, n_tiles)
+                        with self.timer.phase("nonleaf_parallel"):
+                            pnl.train_nonleaf_segments_parallel(
+                                self, chunk, [seg_lists[i] for i in idxs],
+                                level, children_pairs=kids, mesh=mesh)
+                        for i, t in zip(idxs, tags):
+                            self._save_bundle_breadcrumb(bundles[level][i],
+                                                         t)
+                        nonleaf_pretrained.update(idxs)
+
             for seg_idx, frames in enumerate(seg_lists):
                 self.logger.info(f"level {level} seg {seg_idx}: {frames}")
                 tag = f"lv{level}_seg{seg_idx}"
-                crumb = self._load_bundle_breadcrumb(tag)
+                crumb = (None if seg_idx in nonleaf_pretrained
+                         else self._load_bundle_breadcrumb(tag))
                 if crumb is not None:
                     bundle = crumb
                     bundles[level][seg_idx] = bundle
                     self._commit_crumb_rng(bundle)
                     self.global_iteration = bundle.global_iteration
                 elif level == self.train_level:
-                    with self.timer.phase("leaf"):
-                        bundle = self._train_leaf_segment(frames)
-                    bundles[level][seg_idx] = bundle
-                    bundle.global_iteration = self.global_iteration
-                    self._save_bundle_breadcrumb(bundle, tag)
+                    bundle = bundles[level][seg_idx]  # parallel-pre-trained
+                    if bundle is None:
+                        with self.timer.phase("leaf"):
+                            bundle = self._share_bundle(self._on_rank0(
+                                lambda: self._train_leaf_segment(frames)), 0)
+                        bundles[level][seg_idx] = bundle
+                        bundle.global_iteration = self.global_iteration
+                        self._save_bundle_breadcrumb(bundle, tag)
+                    else:
+                        self.global_iteration = bundle.global_iteration
+                elif seg_idx in nonleaf_pretrained:
+                    bundle = bundles[level][seg_idx]  # parallel-pre-trained
+                    self.global_iteration = bundle.global_iteration
                 else:
                     bundle = bundles[level][seg_idx]  # restored from child
-                    if use_base:
-                        children = bundles[level + 1][seg_idx * 2:
-                                                      seg_idx * 2 + 2]
-                        self.global_iteration = bundle.global_iteration
-                        with self.timer.phase("nonleaf_phase1"):
-                            self.train_nonleaf_phase1(bundle, children)
-                    n_it = self.sched.num_iterations_per_frame_each_level[
-                        level] * len(frames)
-                    with self.timer.phase("nonleaf_phase2"):
-                        self.train_nonleaf_phase2(bundle, frames, n_it)
+
+                    def train_nonleaf(bundle=bundle, level=level,
+                                      seg_idx=seg_idx, frames=frames):
+                        if use_base:
+                            children = bundles[level + 1][seg_idx * 2:
+                                                          seg_idx * 2 + 2]
+                            self.global_iteration = bundle.global_iteration
+                            with self.timer.phase("nonleaf_phase1"):
+                                self.train_nonleaf_phase1(bundle, children)
+                        n_it = self.sched.num_iterations_per_frame_each_level[
+                            level] * len(frames)
+                        with self.timer.phase("nonleaf_phase2"):
+                            self.train_nonleaf_phase2(bundle, frames, n_it)
+                        return bundle
+
+                    bundle = self._share_bundle(
+                        self._on_rank0(train_nonleaf), 0)
+                    bundles[level][seg_idx] = bundle
                     bundle.global_iteration = self.global_iteration
                     self._save_bundle_breadcrumb(bundle, tag)
                 bundle.global_iteration = self.global_iteration
@@ -810,9 +933,14 @@ class HTGaussianTrainer(GaussianTrainer):
                         start_fidx=prev.start_fidx,
                         to_visit_frames=list(prev.to_visit_frames))
                     pose_between = dst.get_RT(bundle.start_fidx)
+
+                    def merge(dst=dst, bundle=bundle,
+                              transform=np.linalg.inv(pose_between)):
+                        self.merge_two(dst, bundle, transform)
+                        return dst
+
                     with self.timer.phase("merge"):
-                        self.merge_two(dst, bundle,
-                                       np.linalg.inv(pose_between))
+                        dst = self._share_bundle(self._on_rank0(merge), 0)
                     # chain poses for the newly covered frames
                     for pf in frames:
                         if pf in seg_lists[seg_idx - 1]:
@@ -825,16 +953,138 @@ class HTGaussianTrainer(GaussianTrainer):
                     bundles[level - 1][(seg_idx - 1) // 2] = dst
 
         self.gs_bundle = bundles[0][0]
-        with self.timer.phase("eval"):
-            self.evaluate_on_training_images()
-        self.save_checkpoint()
-        # the run completed: stale crumbs must not leak into a rerun
-        for f in glob.glob(f"{self.result_path}/chkpnt/crumb_*.npz"):
-            os.remove(f)
-        self.logger.info(f"phase timing: {self.timer.summary()}")
-        self.logger.info(f"capacity growths: {self.n_capacity_grows}")
-        self.timer.dump(os.path.join(self.result_path, "phase_timing.json"))
+
+        def finish():
+            with self.timer.phase("eval"):
+                self.evaluate_on_training_images()
+            self.save_checkpoint()
+            # the run completed: stale crumbs must not leak into a rerun
+            for f in glob.glob(f"{self.result_path}/chkpnt/crumb_*.npz"):
+                os.remove(f)
+            self.logger.info(f"phase timing: {self.timer.summary()}")
+            self.logger.info(f"capacity growths: {self.n_capacity_grows}")
+            self.timer.dump(os.path.join(self.result_path,
+                                         "phase_timing.json"))
+
+        self._on_rank0(finish)
         return self.gs_bundle
+
+    # ------------------------------------------------------------------ #
+    # several ranks: the section broadcasts
+    def _bundle_arrays(self, bundle: ModelBundle, stats: bool = False
+                       ) -> dict:
+        """A bundle as numpy arrays: the breadcrumb layout (the JAX
+        trainer's), and with `stats` its densify statistics too."""
+        arrs = {f: _np(getattr(bundle.state, f)) for f in G.PARAM_FIELDS}
+        arrs.update(
+            live=_np(bundle.state.live),
+            active_sh_degree=_np(bundle.state.active_sh_degree),
+            max_sh_degree=np.asarray(bundle.state.max_sh_degree),
+            poses=bundle.poses,
+            radius=np.asarray(bundle.radius),
+            spatial_scale=np.asarray(bundle.spatial_scale),
+            global_iteration=np.asarray(bundle.global_iteration),
+            start_fidx=np.asarray(bundle.start_fidx),
+            to_visit=np.asarray(bundle.to_visit_frames, np.int32),
+        )
+        for f in G.PARAM_FIELDS:
+            arrs[f"adam_m_{f}"] = _np(bundle.opt.m[f])
+            arrs[f"adam_v_{f}"] = _np(bundle.opt.v[f])
+        arrs["adam_step"] = _np(bundle.opt.step)
+        if stats:
+            for f in ("max_radii2d", "grad_accum", "grad_denom"):
+                arrs[f] = _np(getattr(bundle.state, f))
+        return arrs
+
+    def _bundle_from_arrays(self, z) -> ModelBundle:
+        dev = self.device
+        n = z["live"].shape[0]
+        stats = {f: (torch.as_tensor(z[f], device=dev) if f in z
+                     else torch.zeros(n, device=dev))
+                 for f in ("max_radii2d", "grad_accum", "grad_denom")}
+        state = GaussianState(
+            **{f: torch.as_tensor(z[f], device=dev) for f in G.PARAM_FIELDS},
+            live=torch.as_tensor(z["live"], device=dev), **stats,
+            active_sh_degree=torch.as_tensor(z["active_sh_degree"],
+                                             device=dev),
+            max_sh_degree=int(z["max_sh_degree"]))
+        opt = interop.adam_from_numpy(
+            {f: z[f"adam_m_{f}"] for f in G.PARAM_FIELDS},
+            {f: z[f"adam_v_{f}"] for f in G.PARAM_FIELDS},
+            z["adam_step"], dev)
+        return ModelBundle(
+            state=state, opt=opt, radius=float(z["radius"]),
+            spatial_scale=float(z["spatial_scale"]), poses=z["poses"],
+            global_iteration=int(z["global_iteration"]),
+            start_fidx=int(z["start_fidx"]),
+            to_visit_frames=[int(x) for x in z["to_visit"]])
+
+    def _broadcast_npz(self, arrs: Optional[dict], src: int) -> dict:
+        data = None
+        if arrs is not None:
+            buf = io.BytesIO()
+            np.savez(buf, **arrs)
+            data = buf.getvalue()
+        data = comm.broadcast_bytes(data, src, self.device)
+        with np.load(io.BytesIO(data)) as z:
+            return dict(z)
+
+    def _share_bundle(self, bundle: Optional[ModelBundle], src: int
+                      ) -> ModelBundle:
+        """Rank `src`'s bundle on every rank (its own object on src)."""
+        if self.world == 1:
+            return bundle
+        z = self._broadcast_npz(self._bundle_arrays(bundle, stats=True)
+                                if self.rank == src else None, src)
+        return bundle if self.rank == src else self._bundle_from_arrays(z)
+
+    def _share_trainer_state(self):
+        """Rank 0's random streams, iteration count, tile arguments and
+        poses on every rank."""
+        if self.world == 1:
+            return
+        arrs = None
+        if self.rank == 0:
+            arrs = {f"pose__{k}": v for k, v in self.pose_dict.items()}
+            arrs.update(
+                py_rng_state=np.frombuffer(
+                    pickle.dumps(self.rng.getstate()), np.uint8),
+                torch_rng=self.gen.get_state().numpy(),
+                counters=np.asarray([self.global_iteration,
+                                     int(self.just_reset),
+                                     self.n_capacity_grows,
+                                     self._steps_since_tune]),
+                tile_args=np.asarray(json.dumps(self._tile_args)))
+        z = self._broadcast_npz(arrs, 0)
+        if self.rank == 0:
+            return
+        self.pose_dict = {k[6:]: v for k, v in z.items()
+                          if k.startswith("pose__")}
+        # the bytes rank 0 of this run pickled
+        self.rng.setstate(pickle.loads(z["py_rng_state"].tobytes()))
+        self.gen.set_state(torch.from_numpy(z["torch_rng"]))
+        (self.global_iteration, just_reset, self.n_capacity_grows,
+         self._steps_since_tune) = (int(x) for x in z["counters"])
+        self.just_reset = bool(just_reset)
+        ta = json.loads(str(z["tile_args"]))
+        self._tile_args = tuple(tuple(p) for p in ta) if ta else None
+
+    def _share_segments(self, own: Optional[ModelBundle],
+                        mesh: mesh_lib.Mesh, S: int) -> List[ModelBundle]:
+        """The S segments' bundles on every rank, each from its segment's
+        first rank, then rank 0's trainer state."""
+        out = [self._share_bundle(
+            own if self.rank == mesh.root(s) else None, mesh.root(s))
+            for s in range(S)]
+        self._share_trainer_state()
+        return out
+
+    def _on_rank0(self, fn):
+        """fn() on rank 0 alone; then every rank takes rank 0's trainer
+        state. Returns fn's result on rank 0, None elsewhere."""
+        out = fn() if self.rank == 0 else None
+        self._share_trainer_state()
+        return out
 
     def _config_fingerprint(self, lists) -> str:
         """Hash of everything that shapes a segment's training: optim +
@@ -858,24 +1108,15 @@ class HTGaussianTrainer(GaussianTrainer):
         """Crash-resume breadcrumb of a finished sub-training (leaf or
         merged segment): the JAX layout, with the generator's state
         `torch_rng` in place of `jax_key`."""
+        if self.rank == 0:
+            self._write_breadcrumb(bundle, tag)
+        # the other ranks wait for the file: they read it back
+        comm.broadcast_bytes(b"", 0, self.device)
+
+    def _write_breadcrumb(self, bundle: ModelBundle, tag: str):
         path = self._bundle_breadcrumb_path(tag)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        arrs = {f: _np(getattr(bundle.state, f)) for f in G.PARAM_FIELDS}
-        arrs.update(
-            live=_np(bundle.state.live),
-            active_sh_degree=_np(bundle.state.active_sh_degree),
-            max_sh_degree=np.asarray(bundle.state.max_sh_degree),
-            poses=bundle.poses,
-            radius=np.asarray(bundle.radius),
-            spatial_scale=np.asarray(bundle.spatial_scale),
-            global_iteration=np.asarray(bundle.global_iteration),
-            start_fidx=np.asarray(bundle.start_fidx),
-            to_visit=np.asarray(bundle.to_visit_frames, np.int32),
-        )
-        for f in G.PARAM_FIELDS:
-            arrs[f"adam_m_{f}"] = _np(bundle.opt.m[f])
-            arrs[f"adam_v_{f}"] = _np(bundle.opt.v[f])
-        arrs["adam_step"] = _np(bundle.opt.step)
+        arrs = self._bundle_arrays(bundle)
         arrs["config_fp"] = np.array(
             getattr(self, "_crumb_fp", ""), dtype="U16")
         arrs["py_rng_state"] = np.frombuffer(
@@ -903,27 +1144,7 @@ class HTGaussianTrainer(GaussianTrainer):
                 rng_payload = (z["py_rng_state"].tobytes(),
                                z["torch_rng"] if "torch_rng" in z.files
                                else None)
-            dev = self.device
-            zeros = torch.zeros(z["live"].shape[0], device=dev)
-            state = GaussianState(
-                **{f: torch.as_tensor(z[f], device=dev)
-                   for f in G.PARAM_FIELDS},
-                live=torch.as_tensor(z["live"], device=dev),
-                max_radii2d=zeros, grad_accum=zeros.clone(),
-                grad_denom=zeros.clone(),
-                active_sh_degree=torch.as_tensor(z["active_sh_degree"],
-                                                 device=dev),
-                max_sh_degree=int(z["max_sh_degree"]))
-            opt = interop.adam_from_numpy(
-                {f: z[f"adam_m_{f}"] for f in G.PARAM_FIELDS},
-                {f: z[f"adam_v_{f}"] for f in G.PARAM_FIELDS},
-                z["adam_step"], dev)
-            b = ModelBundle(
-                state=state, opt=opt, radius=float(z["radius"]),
-                spatial_scale=float(z["spatial_scale"]), poses=z["poses"],
-                global_iteration=int(z["global_iteration"]),
-                start_fidx=int(z["start_fidx"]),
-                to_visit_frames=[int(x) for x in z["to_visit"]])
+            b = self._bundle_from_arrays(z)
         # the RNG payload is applied only when a caller accepts the crumb
         # (_commit_crumb_rng), so a discarded load leaves the streams as
         # they are
@@ -1060,11 +1281,15 @@ class HTGaussianTrainer(GaussianTrainer):
         return bundle
 
     def save_pose_dict(self, path: str):
+        if self.rank != 0:
+            return
         np.savez_compressed(path, **self.pose_dict)
         self.logger.info(f"poses -> {path}")
 
     def _save_partial_poses(self):
         """Crash-resume breadcrumb of Phase A's results so far."""
+        if self.rank != 0:
+            return
         path = f"{self.result_path}/pose/pose_partial.npz"
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez_compressed(path, **self.pose_dict)

@@ -1,8 +1,10 @@
 """Training losses: (1 - λ) L1 + λ (1 - SSIM) + λ_depth scale/shift-
 invariant depth, with λ = 0.2 and λ_depth = 0 by default.
 
-Counterpart of `ht3dgs.train.losses` (single device; the sharded variants
-are not ported yet). Images are channel-last [H, W, 3] in [0, 1].
+Counterpart of `ht3dgs.train.losses`. Images are channel-last [H, W, 3]
+in [0, 1]. The sharded variants take one row block of the image per rank
+of an `Axis` and return this rank's share of the loss: the shares sum over
+the ranks to the full image's loss, and so do their gradients.
 
 Precision on the card: cuDNN runs float32 convolutions in TF32 unless told
 otherwise, so the SSIM blur runs with `cudnn.allow_tf32 = False`. Float32
@@ -19,6 +21,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import comm
 
 
 def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -58,9 +62,8 @@ def full_precision_convs(use_cudnn: bool = True):
         yield
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor,
-         window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5)."""
+def _ssim_map(img1: torch.Tensor, img2: torch.Tensor,
+              window_size: int) -> torch.Tensor:
     w = _window(window_size, img1.device)
     with full_precision_convs():
         mu1 = _depthwise_blur(img1, w)
@@ -70,9 +73,29 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
         sigma2_sq = _depthwise_blur(img2 * img2, w) - mu2_sq
         sigma12 = _depthwise_blur(img1 * img2, w) - mu1_mu2
     C1, C2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+    return ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
-    return ssim_map.mean()
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor,
+         window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5)."""
+    return _ssim_map(img1, img2, window_size).mean()
+
+
+def ssim_sharded(img1: torch.Tensor, img2: torch.Tensor, axis: comm.Axis,
+                 n_values: int, window_size: int = 11) -> torch.Tensor:
+    """This rank's share of the full image's mean SSIM: the sum of its row
+    block's SSIM map over `n_values` (H * W * C of the full image). A
+    window_size // 2 row halo exchanged with the neighbours (the gradient
+    of the halo rows goes back to them) makes the map exact at the block
+    edges."""
+    halo = window_size // 2
+    both = comm.exchange_row_halos(torch.cat([img1, img2], dim=-1), axis,
+                                   halo)
+    C = img1.shape[-1]
+    m = _ssim_map(both[..., :C], both[..., C:], window_size)
+    return m[halo:-halo].sum() / n_values
 
 
 def l1_loss(pred, gt):
@@ -111,6 +134,40 @@ def scale_shift_invariant_depth_loss(depth_pred, depth_gt, mask=None,
     denom = torch.clamp(mask.sum(), min=1.0)
     data_term = (mask * res * res).sum() / (2.0 * denom)
     return data_term + alpha * _gradient_matching(mask * res, mask)
+
+
+def scale_shift_invariant_depth_loss_sharded(
+        depth_pred, depth_gt, axis: comm.Axis, mask=None,
+        alpha: float = 0.5) -> torch.Tensor:
+    """This rank's share of `scale_shift_invariant_depth_loss` over row
+    blocks: the normal equations are summed over the axis (their backward
+    sums too, so every rank sees the whole loss's dependence on scale and
+    shift), and a 1-row halo from the next block closes the vertical pairs
+    across each block edge, counted by the block that holds the upper
+    row."""
+    if mask is None:
+        mask = (depth_gt > 0.02).to(depth_pred.dtype)
+    sums = comm.all_reduce_sum(torch.stack([
+        (mask * depth_pred * depth_pred).sum(), (mask * depth_pred).sum(),
+        mask.sum(), (mask * depth_pred * depth_gt).sum(),
+        (mask * depth_gt).sum()]), axis)
+    a00, a01, a11, b0, b1 = sums.unbind(0)
+    det = a00 * a11 - a01 * a01
+    ok = det != 0.0
+    det_safe = torch.where(ok, det, torch.ones_like(det))
+    s = torch.where(ok, (a11 * b0 - a01 * b1) / det_safe, 0.0)
+    t = torch.where(ok, (-a01 * b0 + a00 * b1) / det_safe, 0.0)
+    res = s * depth_pred + t - depth_gt
+    denom = torch.clamp(a11, min=1.0)
+    data_term = (mask * res * res).sum() / (2.0 * denom)
+
+    diff = mask * res
+    gx = (diff[:, 1:] - diff[:, :-1]).abs() * (mask[:, 1:] * mask[:, :-1])
+    # the next block's first row (zeros below the image's last row)
+    ext = comm.exchange_row_halos(torch.stack([diff, mask], dim=-1), axis, 1)
+    dext, mext = ext[1:, :, 0], ext[1:, :, 1].detach()
+    gy = (dext[1:] - dext[:-1]).abs() * (mext[1:] * mext[:-1])
+    return data_term + alpha * (gx.sum() + gy.sum()) / denom
 
 
 def compute_loss(image: torch.Tensor, gt_image: torch.Tensor,

@@ -23,6 +23,7 @@ from ..data import depth as depth_lib
 from ..data import readers
 from ..data import vfi as vfi_lib
 from ..data.pointcloud import PointCloud, pcd_from_depth_image
+from ..parallel.mesh import rank as mesh_rank
 from ..utils.config import ModelConfig, OptimizationConfig, PipelineConfig
 
 NEAR = 0.01
@@ -76,6 +77,9 @@ class GaussianTrainer:
         m = self.model_cfg
         logger = logging.getLogger(f"ht3dgs_torch.{m.category}_{m.seq_name}")
         logger.setLevel(logging.INFO)
+        if not logger.handlers and mesh_rank() != 0:
+            # one log per run: rank 0 writes it
+            logger.addHandler(logging.NullHandler())
         if not logger.handlers:
             fh = logging.FileHandler(
                 os.path.join(self.result_path, "output.log"))

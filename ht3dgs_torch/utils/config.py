@@ -75,7 +75,7 @@ class PipelineConfig:
     #   capacity as a fraction of state capacity per tile shard, e.g. 2.0
     #   -> compact_n = 2*cap/n_tiles (raster.tiled compact_n; makes the
     #   per-chip binning cost divide; auto-grows on drops)
-    distributed: bool = False          # multi-host init (not ported yet)
+    distributed: bool = False          # torch.distributed init (run.py)
     capacity_presize: float = 4.0      # parallel leaves: init-pcd capacity
     #                                    headroom (avoids mid-run recompiles)
     trace_dir: Optional[str] = None    # profiler trace capture dir

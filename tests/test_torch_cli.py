@@ -51,7 +51,7 @@ def _write_video(d):
     return img_dir
 
 
-def test_run_main_all_modes(tmp_path, monkeypatch):
+def test_run_main_all_modes(tmp_path, monkeypatch, capsys):
     d = str(tmp_path)
     img_dir = _write_video(d)
     monkeypatch.chdir(d)
@@ -96,9 +96,13 @@ def test_run_main_all_modes(tmp_path, monkeypatch):
     assert len(os.listdir(os.path.join(out, "nvs", "bspline",
                                        "img_out"))) == 120
 
-    with pytest.raises(NotImplementedError, match="P15"):
-        run.main(["--mode", "train", "--distributed"] + common,
-                 device="cpu")
+    # --distributed in one process without torchrun's environment: a
+    # world of one rank, the same poses
+    run.main(["--mode", "pose_only", "--distributed"] + common,
+             device="cpu")
+    assert "[distributed] process 0/1 on cpu" in capsys.readouterr().out
+    with np.load(os.path.join(out, "pose", "pose.npz")) as z:
+        np.testing.assert_array_equal(z["poses_pred"], poses)
 
 
 def test_torch_trace_writes_a_trace(tmp_path):

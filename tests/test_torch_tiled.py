@@ -118,13 +118,13 @@ def test_binning_matches(h, w, K, dup):
     (j_ent, j_meta, j_total, j_ndm, j_ndt, _), j_d = jax.tree.map(
         np.asarray, j_f(attrs, noise))
     t_attrs = torch.tensor(np.asarray(attrs), requires_grad=True)
-    ent, meta, total, ndm, ndt = t_tiled.build_tile_lists_from_rows(
+    ent, meta, total, ndm, ndt, ndc = t_tiled.build_tile_lists_from_rows(
         t_attrs, torch.tensor(np.asarray(jp.valid)),
         torch.tensor(np.asarray(jp.depths)), *geom)
 
     np.testing.assert_array_equal(meta.numpy(), j_meta)
-    assert (int(total), int(ndm), int(ndt)) == (int(j_total), int(j_ndm),
-                                                int(j_ndt))
+    assert (int(total), int(ndm), int(ndt), int(ndc)) == (
+        int(j_total), int(j_ndm), int(j_ndt), 0)
     if (K, dup) != (256, 16):
         assert int(ndm) + int(ndt) > 0
     rows = np.arange(K)[None, :] < j_meta[:, :1]
@@ -138,10 +138,46 @@ def test_binning_matches(h, w, K, dup):
 
 
 def test_capacity_modes_not_ported(scene):
-    _, _, ts, tc = scene
-    for kw in (dict(route_bf16=True), dict(compact_n=64)):
-        with pytest.raises(NotImplementedError):
-            t_render(ts, tc, mode="tiled", tile_args=kw)
+    """The two capacity modes the first slices left out, now ported:
+    compact_n (meta, entries and all four counters exact, drops included)
+    and route_bf16 (the binning VJP of one cotangent, rounded to bfloat16
+    per entry in both packages, to 1e-5 of its max)."""
+    js, cam, _, _ = scene
+    h, w, K, dup, nc = 48, 64, 128, 4, 48
+    jp = j_proj.project(*_proj_inputs(js), cam, js.active_sh_degree, 3)
+    attrs = j_tiled._pack_attr_rows(jp)
+    geom = (h, w, 16, 16, K, dup, True, nc)
+    T = j_tiled._cdiv(h, 16) * j_tiled._cdiv(w, 16)
+    noise = np.random.default_rng(3).standard_normal(
+        (T, K, 16)).astype(np.float32)
+
+    @jax.jit
+    def j_f(a, noise):
+        outs, vjp = jax.vjp(lambda a: j_tiled.build_tile_lists_from_rows(
+            a, jp.valid, jp.depths, *geom), a)
+        rows = jnp.arange(K)[None, :] < outs[1][:, :1]
+        zero_cts = jax.tree.map(
+            lambda x: np.zeros(x.shape, jax.dtypes.float0)
+            if x.dtype.kind in "iub" else jnp.zeros_like(x), outs[1:])
+        return outs, vjp((noise[..., :10] * rows[..., None],)
+                         + tuple(zero_cts))[0]
+
+    j_outs, j_d = jax.tree.map(np.asarray, j_f(attrs, noise))
+    t_attrs = torch.tensor(np.asarray(attrs), requires_grad=True)
+    t_outs = t_tiled.build_tile_lists_from_rows(
+        t_attrs, torch.tensor(np.asarray(jp.valid)),
+        torch.tensor(np.asarray(jp.depths)), *geom)
+    np.testing.assert_array_equal(t_outs[1].numpy(), j_outs[1])
+    counts = [int(x) for x in t_outs[2:]]
+    assert counts == [int(x) for x in j_outs[2:]]
+    assert counts[-1] > 0, "compact_n drops entries in this scene"
+    rows = np.arange(K)[None, :] < j_outs[1][:, :1]
+    np.testing.assert_array_equal(t_outs[0].detach().numpy()[rows][:, :10],
+                                  j_outs[0][rows])
+    (t_d,) = torch.autograd.grad(t_outs[0], [t_attrs],
+                                 torch.tensor(noise * rows[..., None]))
+    np.testing.assert_allclose(t_d.numpy()[:, :10], j_d[:, :10], rtol=0,
+                               atol=1e-5 * np.abs(j_d).max())
 
 
 @pytest.mark.parametrize("mode", ["oracle", "tiled"])
