@@ -57,11 +57,18 @@ Phases (any failure exits non-zero):
    the Gaussian-sharded step, each held to gaussian_train_step on the
    trained-stats scene (rotated, anisotropic: mesh_scene) at tile arguments
    that drop no entry; (c) the full tier's hierarchical_training on a
-   (2, 2) mesh of 4 gloo ranks: poses within 3 degrees, PSNR above 18 dB,
-   the root covering every frame and bit-equal on every rank (SHA-256), K1
-   and K2 launched once per step in every trainer phase of every rank;
-   it prints the phase table, all-reduce and broadcast times and the host
-   share of a root step on a (1, 4) mesh.
+   (2, 2) mesh of 4 gloo ranks, each rank in a working directory of its
+   own and with deterministic algorithms after Phase A: poses within 3
+   degrees, PSNR above 18 dB, the root covering every frame and bit-equal
+   on every rank (SHA-256), K1 and K2 launched once per step in every
+   trainer phase of every rank; it prints the phase table, all-reduce and
+   broadcast times and the host share of a root step on a (1, 4) mesh,
+   with and without deterministic algorithms. Then the same run
+   again from rank 0's Phase A poses, ended where the root would start,
+   and resumed from the crumbs and poses in rank 0's directory alone
+   under a process-group timeout of half the root's seconds, which ranks
+   2 and 3 wait out: the resumed root equals the uninterrupted one on
+   every rank (digest, poses, generator).
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -74,6 +81,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -1412,8 +1420,11 @@ def phase_nccl(B, state, cam, target, device):
     try:
         import torch.distributed as dist
 
+        section = mesh_lib._GROUPS[mesh_lib._SECTION]
         print(f"phase 11a: process group {dist.get_backend()}, world "
-              f"{dist.get_world_size()}")
+              f"{dist.get_world_size()}; section group "
+              f"{dist.get_backend(section)}, world "
+              f"{dist.get_world_size(section)}")
         step = mesh_lib.build_hierarchy_step(
             mesh_lib.make_mesh(1, 1), H, W, mode="tiled",
             tile_args=TILE_ARGS)
@@ -1515,24 +1526,53 @@ def mesh_steps_rank(rank: int, seed: int, targs: dict, compact_n: int):
                 "n_dropped", "n_dropped_m", "n_dropped_tile")}}
 
 
-def tier_mesh_rank(rank: int, seed: int, workdir: str):
-    """11c on one of MESH_RANKS gloo ranks sharing the card: the full
-    tier's hierarchical_training on a (2, 2) mesh, then the host share of
-    a root step on a (1, 4) mesh."""
+def deterministic() -> None:
+    """Deterministic algorithms in this process from here on: 11c holds a
+    resumed run to the uninterrupted one bit for bit, and index_add_ on the
+    card sums in no fixed order otherwise. cuBLAS reads its workspace
+    setting at its first call, which may come before: the rank functions
+    set it first."""
     import torch
 
-    from ht3dgs_torch.parallel import checks, comm
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+# a cuBLAS workspace with which deterministic algorithms are allowed
+CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def rank_dir(workdir: str, run: str, rank: int) -> str:
+    """A working directory of this rank's own: the ranks share no files,
+    as on hosts that share no disk."""
+    d = os.path.join(workdir, run, f"r{rank}")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+class Stopped(Exception):
+    pass
+
+
+def tier_mesh_rank(rank: int, seed: int, workdir: str):
+    """11c on one of MESH_RANKS gloo ranks sharing the card: run A, the
+    full tier's hierarchical_training on a (2, 2) mesh, then the host share
+    of a root step on a (1, 4) mesh; then run B, the same from A's Phase A
+    poses (copied to rank 0's directory alone), ended where the root's
+    chunk would start (rank 0 alone writes the crumbs)."""
+    import torch
+
+    from ht3dgs_torch.parallel import checks
     from ht3dgs_torch.parallel import mesh as mesh_lib
     from ht3dgs_torch.raster import blend as B
-    from ht3dgs_torch.train import hierarchy, phase_a
+    from ht3dgs_torch.train import hierarchy, parallel_nonleaf, phase_a
     from ht3dgs_torch.train import step as step_lib
 
+    os.environ.update(CUBLAS_DETERMINISTIC)
     device = mesh_lib.rank_device("cuda")
     timer = CommTimer()
-    os.chdir(workdir)
-    tr, scene = tier_trainer(device, seed, mesh=(2, 2),
-                             write_depth=rank == 0)
-    comm.broadcast_bytes(b"", 0, device)   # rank 0 wrote the depths
+    os.chdir(rank_dir(workdir, "a", rank))
+    tr, scene = tier_trainer(device, seed, mesh=(2, 2))
     counter = StepCounter(B, tr.timer)
     sections = [0]
 
@@ -1552,12 +1592,21 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
             return counted
         return build
 
+    def then_deterministic(fn):
+        # Phase A's poses reach runs B and C through rank 0's file, so
+        # only what follows Phase A has to repeat bit for bit
+        def phase_a(self):
+            fn(self)
+            deterministic()
+        return phase_a
+
     originals = [(m, n, counter.wrap(m, n)) for m, n in (
         (phase_a, "_fit_step"), (phase_a, "_pose_step"),
         (step_lib, "gaussian_train_step"))]
     patches = [(mesh_lib, "build_hierarchy_step", counted_builder),
                (hierarchy.HTGaussianTrainer, "_share_trainer_state",
-                counted_share)]
+                counted_share),
+               (hierarchy.HTGaussianTrainer, "_phase_a", then_deterministic)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, make in patches:
         setattr(m, n, make(getattr(m, n)))
@@ -1576,7 +1625,8 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
         wall=wall, launches=launches, summary=tr.timer.summary(),
         steps=dict(counter.steps),
         phase_launches={k: dict(v) for k, v in counter.launches.items()},
-        digest=checks.state_digest(bundle.state),
+        digest=checks.state_digest(bundle.state), poses=bundle.poses,
+        gen=tr.gen.get_state().numpy(),
         frames=bundle.to_visit_frames, sections=sections[0],
         comm_s=comm_s, comm_n=comm_n,
         capacity=(int(bundle.state.n_live()), bundle.state.capacity))
@@ -1602,7 +1652,83 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
     c1 = timer.snapshot()
     res["step_all_reduce_ms"] = 1e3 * (c1[0]["all_reduce"]
                                        - c0[0]["all_reduce"]) / calls[0]
+    # the cost of the deterministic algorithms: the same step as users run
+    torch.use_deterministic_algorithms(False)
+    res["step_ms_nondet"], res["busy_ms_nondet"] = host_share(one_step)
+    torch.use_deterministic_algorithms(True)
+
+    # run B, in a second directory of this rank's own
+    os.chdir(rank_dir(workdir, "b", rank))
+    trb, _ = tier_trainer(device, seed, mesh=(2, 2))
+    if rank == 0:
+        pose = os.path.join(trb.result_path, "pose")
+        os.makedirs(pose)
+        shutil.copy(os.path.join(tr.result_path, "pose", "pose_partial.npz"),
+                    pose)
+
+    def stop(*a, **kw):
+        raise Stopped
+
+    t0 = time.perf_counter()
+    with wrapped(parallel_nonleaf, "train_nonleaf_segments_parallel",
+                 lambda fn: stop):
+        try:
+            trb.hierarchical_training()
+        except Stopped:
+            pass
+        else:
+            raise RuntimeError("11c run B did not stop at the root")
+    res["b_wall"] = time.perf_counter() - t0
     return res
+
+
+def tier_resume_rank(rank: int, seed: int, workdir: str):
+    """11c, run C on one of MESH_RANKS gloo ranks: run B resumed in this
+    rank's directory of B, where only rank 0's holds crumbs and Phase A's
+    poses. Returns the root's digest, poses and generator state, the
+    resume files this rank found, the Phase A poses and the segments
+    taken from rank 0, the phase table and the wall time."""
+    import torch
+
+    from ht3dgs_torch.parallel import checks
+    from ht3dgs_torch.parallel import mesh as mesh_lib
+    from ht3dgs_torch.train import hierarchy
+
+    os.environ.update(CUBLAS_DETERMINISTIC)
+    deterministic()
+    device = mesh_lib.rank_device("cuda")
+    os.chdir(rank_dir(workdir, "b", rank))
+    tr, _ = tier_trainer(device, seed, mesh=(2, 2), write_depth=False)
+    files = checks.resume_files(tr.result_path)
+    taken, n_poses = set(), []
+
+    def counted_load(fn):
+        def load(self, tag):
+            b = fn(self, tag)
+            if b is not None:
+                taken.add(tag)
+            return b
+        return load
+
+    def counted_resume(fn):
+        def resume(self):
+            fn(self)
+            n_poses.append(sum(k.startswith("rel_pose_")
+                               for k in self.pose_dict))
+        return resume
+
+    t0 = time.perf_counter()
+    with wrapped(hierarchy.HTGaussianTrainer, "_load_bundle_breadcrumb",
+                 counted_load), \
+            wrapped(hierarchy.HTGaussianTrainer, "_resume_poses",
+                    counted_resume):
+        bundle = tr.hierarchical_training()
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0,
+                digest=checks.state_digest(bundle.state),
+                poses=bundle.poses, gen=tr.gen.get_state().numpy(),
+                files=files, taken=sorted(taken), n_poses=n_poses[0],
+                summary=tr.timer.summary())
 
 
 def phase_mesh(B, device, seed: int, state, cam) -> dict:
@@ -1641,6 +1767,15 @@ def phase_mesh(B, device, seed: int, state, cam) -> dict:
                              device="cuda", args=(seed, workdir),
                              timeout=900, threads=2)
         total = time.perf_counter() - t0
+        # C under a process-group timeout of half the root's seconds in A:
+        # ranks 2 and 3 wait out the root's chunk in one wait
+        pg_timeout = res[0]["summary"]["nonleaf_parallel"]["total_s"] / 2
+        t0 = time.perf_counter()
+        resumed = mesh_lib.spawn(tier_resume_rank, MESH_RANKS,
+                                 backend="gloo", device="cuda",
+                                 args=(seed, workdir), timeout=600,
+                                 pg_timeout=pg_timeout, threads=2)
+        total_c = time.perf_counter() - t0
     r0 = res[0]
     print(f"phase 11c: hierarchical_training on a (2, 2) mesh of "
           f"{MESH_RANKS} gloo ranks: {r0['wall']:.1f} s (spawn and all "
@@ -1673,7 +1808,9 @@ def phase_mesh(B, device, seed: int, state, cam) -> dict:
               f"median {rr['step_ms']:.3f} ms, device busy "
               f"{rr['busy_ms']:.3f} ms, host share "
               f"{100 * (1 - rr['busy_ms'] / rr['step_ms']):.1f}%, "
-              f"all-reduce {rr['step_all_reduce_ms']:.3f} ms per step")
+              f"all-reduce {rr['step_all_reduce_ms']:.3f} ms per step; "
+              f"without deterministic algorithms {rr['step_ms_nondet']:.3f}"
+              f" ms, device busy {rr['busy_ms_nondet']:.3f} ms")
         for k, v in rr["launches"].items():
             launches[k] += v
     print(f"phase 11c: relative-pose rotation error, degrees: max "
@@ -1689,7 +1826,46 @@ def phase_mesh(B, device, seed: int, state, cam) -> dict:
     check(r0["psnr"] > MIN_PSNR, f"11c: train-view mean PSNR > {MIN_PSNR}")
     check({"leaf_parallel", "nonleaf_parallel"} <= set(r0["summary"]),
           "11c: leaves and the root ran on the mesh")
+    check_resume(res, resumed, pg_timeout, total_c)
     return launches
+
+
+def check_resume(res, resumed, pg_timeout: float, total_c: float) -> None:
+    """11c's resume (run C) against the uninterrupted run A, rank by
+    rank."""
+    c0 = resumed[0]
+    ph = c0["summary"]
+    section = ph["nonleaf_parallel"]["total_s"]
+    alone = sum(ph[k]["total_s"] for k in ("merge", "eval") if k in ph)
+    print(f"phase 11c resume: run B (A's poses, stopped at the root) "
+          f"{res[0]['b_wall']:.1f} s; run C {c0['wall']:.1f} s (spawn and "
+          f"all {total_c:.1f} s), {c0['n_poses']} Phase A poses and "
+          f"{len(c0['taken'])} segments {c0['taken']} taken from rank 0; "
+          f"resume files by rank "
+          f"{[len(rc['files']) for rc in resumed]}")
+    print(f"phase 11c short timeout: process-group timeout {pg_timeout:.3f}"
+          f" s; ranks 2-3 waited out the root's chunk on a (1, 2) mesh, "
+          f"{section:.3f} s, in one wait; rank 0 alone: merge and eval "
+          f"{alone:.3f} s")
+    check(any(f.startswith("chkpnt") for f in c0["files"])
+          and "pose/pose_partial.npz" in c0["files"]
+          and all(rc["files"] == [] for rc in resumed[1:]),
+          "11c: resume files in rank 0's directory alone")
+    check(c0["n_poses"] == TIER_FRAMES - 1
+          and c0["taken"] == ["lv1_seg0", "lv1_seg1"]
+          and "leaf_parallel" not in ph,
+          "11c: run C took Phase A and the leaves from rank 0")
+    check(section > pg_timeout,
+          "11c: the root's chunk outlasted the process-group timeout")
+    for r, (ra, rc) in enumerate(zip(res, resumed)):
+        check(rc["digest"] == ra["digest"]
+              and np.array_equal(rc["poses"], ra["poses"])
+              and np.array_equal(rc["gen"], ra["gen"]),
+              f"11c rank {r}: the resumed root equals the uninterrupted "
+              "one (digest, poses, generator)")
+    print(f"phase 11c resume: the resumed root equals the uninterrupted "
+          f"one on all {len(resumed)} ranks (digest {c0['digest'][:16]}, "
+          "poses, generator state)")
 
 
 def host_share(fn, reps: int = 20, profiled: int = 5):

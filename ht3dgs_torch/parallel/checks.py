@@ -200,30 +200,75 @@ def run_main(rank, argv, workdir):
     run.main(argv, device="cpu")
 
 
+def resume_files(result_path) -> list:
+    """The crumbs and Phase A's partial poses under a result_path."""
+    import glob
+    import os
+
+    return sorted(os.path.relpath(f, result_path) for f in
+                  glob.glob(os.path.join(result_path, "chkpnt", "crumb_*"))
+                  + glob.glob(os.path.join(result_path, "pose",
+                                           "pose_partial.npz")))
+
+
 def train_and_resume(rank, data_dir, workdir, cfgs, device="cpu"):
-    """hierarchical_training three times: A uninterrupted in workdir/a;
-    B in workdir/b from A's Phase A poses, ended where the first parallel
-    non-leaf chunk would start; C resuming B from its crumbs. Returns A's
-    and C's results."""
+    """hierarchical_training three times, each rank in a working
+    directory of its own (as on hosts that share no disk): A uninterrupted
+    in workdir/a/r<rank>; B in workdir/b/r<rank>, from A's Phase A poses
+    copied to rank 0's directory alone, ended where the first parallel
+    non-leaf chunk would start; C resuming B from rank 0's crumbs. Returns
+    A's and C's results, C's with the resume files that B left in this
+    rank's directory."""
     import os
     import shutil
 
-    from .comm import broadcast_bytes
-
-    dirs = [os.path.join(workdir, k) for k in "ab"]
-    if rank == 0:
-        for d in dirs:
-            os.makedirs(d, exist_ok=True)
-    broadcast_bytes(b"", 0, device)
+    dirs = [os.path.join(workdir, k, f"r{rank}") for k in "ab"]
+    for d in dirs:
+        os.makedirs(d)
     a = hierarchical_training(rank, data_dir, dirs[0], cfgs, device=device)
+    rel = os.path.relpath(a["result_path"], dirs[0])
     if rank == 0:
-        pose = os.path.join(os.path.relpath(a["result_path"], dirs[0]),
-                            "pose")
-        os.makedirs(os.path.join(dirs[1], pose))
-        shutil.copy(os.path.join(dirs[0], pose, "pose_partial.npz"),
-                    os.path.join(dirs[1], pose))
-    broadcast_bytes(b"", 0, device)
+        os.makedirs(os.path.join(dirs[1], rel, "pose"))
+        shutil.copy(os.path.join(dirs[0], rel, "pose", "pose_partial.npz"),
+                    os.path.join(dirs[1], rel, "pose"))
     hierarchical_training(rank, data_dir, dirs[1], cfgs, device=device,
                           stop_before="nonleaf")
+    left = resume_files(os.path.join(dirs[1], rel))
     c = hierarchical_training(rank, data_dir, dirs[1], cfgs, device=device)
+    c["resume_files"] = left
     return a, c
+
+
+def rank0_section(rank, seconds, section_group=True):
+    """HTGaussianTrainer._on_rank0 of a section in which rank 0 sleeps
+    `seconds`, then changes the trainer's poses, streams and iteration
+    count; returns the section's result and the state this rank holds
+    after it. section_group=False drops the wait on the section group, so
+    the other ranks wait in the main group's broadcast instead."""
+    import random
+    import time
+
+    from ..train import hierarchy
+
+    if not section_group:
+        mesh_lib.wait_for_rank = lambda src=0: None
+    tr = hierarchy.HTGaussianTrainer.__new__(hierarchy.HTGaussianTrainer)
+    tr.rank, tr.world = mesh_lib.rank(), mesh_lib.world_size()
+    tr.device = torch.device("cpu")
+    tr.pose_dict, tr.rng = {}, random.Random(0)
+    tr.gen = torch.Generator().manual_seed(0)
+    tr.global_iteration = tr.n_capacity_grows = tr._steps_since_tune = 0
+    tr.just_reset, tr._tile_args = False, None
+
+    def section():
+        time.sleep(seconds)
+        tr.pose_dict["rel_pose_0_to_1"] = np.full((4, 4), 7.0, np.float32)
+        tr.global_iteration = 123
+        tr.rng.random()
+        torch.randn(3, generator=tr.gen)
+        return "rank 0's result"
+
+    out = tr._on_rank0(section)
+    return {"out": out, "pose_dict": tr.pose_dict,
+            "global_iteration": tr.global_iteration,
+            "rng": tr.rng.getstate(), "gen": tr.gen.get_state().numpy()}

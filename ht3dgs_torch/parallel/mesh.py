@@ -21,6 +21,12 @@ into one buffer and reduces it with a single all-reduce.
 or explicit arguments), `spawn` runs a function on a world of local ranks.
 NCCL needs a card per rank; gloo runs several ranks on one card and on the
 CPU. The backend is always the caller's choice.
+
+Beside the main group, `init_distributed` makes the section group: CPU
+gloo over every rank, with a timeout of a year. Ranks that wait while
+rank 0 works alone (`wait_for_rank`) wait there, so the main group's
+timeout bounds only real collectives and a section may run for hours, as
+it can in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,6 +105,11 @@ def check_backend(device) -> None:
                            "collective results")
 
 
+# long enough to count as no limit
+SECTION_TIMEOUT = datetime.timedelta(days=365)
+_SECTION = "section"
+
+
 def init_distributed(backend: Optional[str] = None,
                      init_method: Optional[str] = None,
                      world: Optional[int] = None,
@@ -111,7 +122,8 @@ def init_distributed(backend: Optional[str] = None,
     no-op in a single process (no WORLD_SIZE, no arguments) and when the
     group is up already. `backend` defaults to "nccl" for a CUDA device and
     "gloo" for the CPU; NCCL that fails raises, nothing falls back. The
-    timeout bounds the rendezvous and every collective."""
+    timeout bounds the rendezvous and every collective of the main group;
+    the section group, made here on every rank, has SECTION_TIMEOUT."""
     if dist.is_initialized():
         return dist.get_world_size()
     if world is None and "WORLD_SIZE" not in os.environ:
@@ -131,12 +143,27 @@ def init_distributed(backend: Optional[str] = None,
     if init_method is not None:
         kw.update(init_method=init_method, world_size=world, rank=rank_)
     dist.init_process_group(**kw)
+    _GROUPS[_SECTION] = dist.new_group(backend="gloo",
+                                       timeout=SECTION_TIMEOUT)
     check_backend(dev)
     return dist.get_world_size()
 
 
+def wait_for_rank(src: int = 0) -> None:
+    """Return on every rank once rank `src` has called this too: a
+    one-element CPU broadcast from `src` on the section group. Call it
+    at the end of a section that `src` runs alone and before the section's
+    results are broadcast on the main group, so that no collective of the
+    main group is pending while `src` works. If `src` dies, gloo closes
+    its connections and the waiting ranks raise. No-op in one process."""
+    if world_size() > 1:
+        dist.broadcast(torch.zeros(1, dtype=torch.uint8), src=src,
+                       group=_GROUPS[_SECTION])
+
+
 def shutdown() -> None:
-    """Destroy the process group and forget its subgroups."""
+    """Destroy the process group and forget its subgroups (the section
+    group among them)."""
     _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -148,14 +175,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawned(fn, r, world, backend, device, port, args, timeout, threads,
-             out):
+def _spawned(fn, r, world, backend, device, port, args, timeout,
+             pg_timeout, threads, started, out):
     os.environ.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     torch.set_num_threads(threads)
     try:
-        init_distributed(backend, device=device, timeout=timeout)
+        # the ranks meet first, so a rendezvous under a short pg_timeout
+        # does not wait for a sibling still importing
+        started.wait(timeout)
+        init_distributed(backend, device=device, timeout=pg_timeout)
         out.put((r, True, fn(r, *args)))
     except Exception:     # reported to the parent, which fails
         out.put((r, False, traceback.format_exc()))
@@ -163,21 +193,24 @@ def _spawned(fn, r, world, backend, device, port, args, timeout, threads,
         shutdown()
 
 
-def spawn(fn, world: int, backend: str = "gloo", device="cpu", args=(),
-          timeout: float = 120.0, threads: int = 1) -> list:
+def spawn(fn, world: int, backend: str = "gloo", device="cuda", args=(),
+          timeout: float = 120.0, threads: int = 1,
+          pg_timeout: Optional[float] = None) -> list:
     """Run fn(rank, *args) on `world` new local processes joined in one
     process group, and return their results by rank. fn and its arguments
-    and results are pickled, so fn is a module-level function. The
-    rendezvous, every collective and the whole run are bounded by
-    `timeout` seconds; on a failure or a timeout every child is killed and
-    the error raised."""
+    and results are pickled, so fn is a module-level function. The whole
+    run is bounded by `timeout` seconds, the rendezvous and every
+    collective of the main group by `pg_timeout` (default: `timeout`); on
+    a failure or a timeout every child is killed and the error raised."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    started = ctx.Barrier(world)
     port = _free_port()
     procs = [ctx.Process(target=_spawned, args=(
-        fn, r, world, backend, str(device), port, args, timeout, threads,
+        fn, r, world, backend, str(device), port, args, timeout,
+        timeout if pg_timeout is None else pg_timeout, threads, started,
         out), daemon=True) for r in range(world)]
     for p in procs:
         p.start()
@@ -207,9 +240,10 @@ def spawn(fn, world: int, backend: str = "gloo", device="cpu", args=(),
 # ---------------------------------------------------------------------------
 # the mesh
 
-# process groups by their ranks: new_group is collective and costly, so
-# each group is made once per process group (shutdown forgets them)
-_GROUPS: Dict[tuple, object] = {}
+# process groups by their ranks, and the section group: new_group is
+# collective and costly, so each group is made once per process group
+# (shutdown forgets them)
+_GROUPS: Dict[object, object] = {}
 
 
 def _group(ranks) -> object:

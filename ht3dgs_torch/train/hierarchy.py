@@ -28,8 +28,12 @@ non-leaf segments train on the (segment, tile) mesh (`parallel_leaves`,
 rank; Phase A deals the models of each batch over the ranks. Sequential
 sections run on rank 0 and broadcast its results: `index_add_` on the card
 sums in no fixed order, so ranks that each ran them would drift apart.
-Only rank 0 writes crumbs, checkpoints, poses and logs; every rank reads
-crumbs on resume.
+While rank 0 works alone, the others wait on the section group
+(`parallel.mesh.wait_for_rank`), which has no time limit to speak of;
+the results then travel on the main group. Only rank 0 writes crumbs,
+checkpoints, poses and logs, and only rank 0 reads resume state (the pose
+files, the crumbs): it decides and broadcasts, so a multi-host run resumes
+from rank 0's result_path alone.
 """
 
 from __future__ import annotations
@@ -764,15 +768,21 @@ class HTGaussianTrainer(GaussianTrainer):
         o.densify_from_iter = o.single_step
 
     def _resume_poses(self):
-        if self.pipe_cfg.load_pose and os.path.exists(self.pipe_cfg.load_pose):
-            self.load_pose_dict(self.pipe_cfg.load_pose)
-            self.logger.info(f"loaded poses from {self.pipe_cfg.load_pose}")
-        # crash resume: Phase A persists its pose dict after every chunk
-        partial = f"{self.result_path}/pose/pose_partial.npz"
-        if not self.pose_dict and os.path.exists(partial):
-            self.load_pose_dict(partial)
-            self.logger.info(
-                f"resumed {len(self.pose_dict)} poses from {partial}")
+        """Read pipe.load_pose, else Phase A's partial poses, on rank 0;
+        every rank takes rank 0's pose dict, empty or not."""
+        def read():
+            load = self.pipe_cfg.load_pose
+            if load and os.path.exists(load):
+                self.load_pose_dict(load)
+                self.logger.info(f"loaded poses from {load}")
+            # crash resume: Phase A persists its pose dict after every chunk
+            partial = f"{self.result_path}/pose/pose_partial.npz"
+            if not self.pose_dict and os.path.exists(partial):
+                self.load_pose_dict(partial)
+                self.logger.info(
+                    f"resumed {len(self.pose_dict)} poses from {partial}")
+
+        self._on_rank0(read)
 
     def _phase_a(self):
         if getattr(self.pipe_cfg, "phase_a_batch", 0) > 0:
@@ -954,6 +964,8 @@ class HTGaussianTrainer(GaussianTrainer):
 
         self.gs_bundle = bundles[0][0]
 
+        # rank 0 deletes the crumbs of its own result_path only: no other
+        # rank reads resume state from its disk
         def finish():
             with self.timer.phase("eval"):
                 self.evaluate_on_training_images()
@@ -1019,13 +1031,17 @@ class HTGaussianTrainer(GaussianTrainer):
             start_fidx=int(z["start_fidx"]),
             to_visit_frames=[int(x) for x in z["to_visit"]])
 
-    def _broadcast_npz(self, arrs: Optional[dict], src: int) -> dict:
+    def _broadcast_npz(self, arrs: Optional[dict], src: int
+                       ) -> Optional[dict]:
+        """Rank `src`'s arrays on every rank; None where src passed None."""
         data = None
         if arrs is not None:
             buf = io.BytesIO()
             np.savez(buf, **arrs)
             data = buf.getvalue()
         data = comm.broadcast_bytes(data, src, self.device)
+        if not data:
+            return None
         with np.load(io.BytesIO(data)) as z:
             return dict(z)
 
@@ -1073,6 +1089,8 @@ class HTGaussianTrainer(GaussianTrainer):
                         mesh: mesh_lib.Mesh, S: int) -> List[ModelBundle]:
         """The S segments' bundles on every rank, each from its segment's
         first rank, then rank 0's trainer state."""
+        # ranks outside the mesh wait out the chunk here, with no time limit
+        mesh_lib.wait_for_rank(0)
         out = [self._share_bundle(
             own if self.rank == mesh.root(s) else None, mesh.root(s))
             for s in range(S)]
@@ -1080,9 +1098,12 @@ class HTGaussianTrainer(GaussianTrainer):
         return out
 
     def _on_rank0(self, fn):
-        """fn() on rank 0 alone; then every rank takes rank 0's trainer
-        state. Returns fn's result on rank 0, None elsewhere."""
+        """fn() on rank 0 alone, however long it takes; then every rank
+        takes rank 0's trainer state. Returns fn's result on rank 0, None
+        elsewhere."""
         out = fn() if self.rank == 0 else None
+        # the others wait with no time limit, on the section group
+        mesh_lib.wait_for_rank(0)
         self._share_trainer_state()
         return out
 
@@ -1110,8 +1131,9 @@ class HTGaussianTrainer(GaussianTrainer):
         `torch_rng` in place of `jax_key`."""
         if self.rank == 0:
             self._write_breadcrumb(bundle, tag)
-        # the other ranks wait for the file: they read it back
-        comm.broadcast_bytes(b"", 0, self.device)
+        # a large model's crumb takes a while to compress: the others wait
+        # for it here, not in the main group's next collective
+        mesh_lib.wait_for_rank(0)
 
     def _write_breadcrumb(self, bundle: ModelBundle, tag: str):
         path = self._bundle_breadcrumb_path(tag)
@@ -1126,30 +1148,41 @@ class HTGaussianTrainer(GaussianTrainer):
         os.replace(path + ".tmp.npz", path)
         self.logger.info(f"breadcrumb -> {path}")
 
-    def _load_bundle_breadcrumb(self, tag: str) -> Optional[ModelBundle]:
+    def _read_breadcrumb(self, tag: str) -> Optional[dict]:
+        """The crumb's arrays, or None if it is missing or was written for
+        another configuration."""
         path = self._bundle_breadcrumb_path(tag)
         if not os.path.exists(path):
             return None
         with np.load(path) as z:
-            saved_fp = str(z["config_fp"]) if "config_fp" in z.files else None
-            if saved_fp != getattr(self, "_crumb_fp", ""):
-                self.logger.warning(
-                    f"REFUSING breadcrumb {path}: config fingerprint "
-                    f"{saved_fp!r} != current "
-                    f"{getattr(self, '_crumb_fp', '')!r} — retraining this "
-                    "segment")
-                return None
-            rng_payload = None
-            if "py_rng_state" in z.files:
-                rng_payload = (z["py_rng_state"].tobytes(),
-                               z["torch_rng"] if "torch_rng" in z.files
-                               else None)
-            b = self._bundle_from_arrays(z)
+            z = dict(z)
+        saved_fp = str(z["config_fp"]) if "config_fp" in z else None
+        if saved_fp != getattr(self, "_crumb_fp", ""):
+            self.logger.warning(
+                f"REFUSING breadcrumb {path}: config fingerprint "
+                f"{saved_fp!r} != current "
+                f"{getattr(self, '_crumb_fp', '')!r} — retraining this "
+                "segment")
+            return None
+        self.logger.info(f"resumed breadcrumb {path}")
+        return z
+
+    def _load_bundle_breadcrumb(self, tag: str) -> Optional[ModelBundle]:
+        """Rank 0's crumb `tag` (or None) on every rank: one collective
+        with several ranks, so every rank makes its calls in one order."""
+        z = self._read_breadcrumb(tag) if self.rank == 0 else None
+        if self.world > 1:
+            mesh_lib.wait_for_rank(0)
+            z = self._broadcast_npz(z, 0)
+        if z is None:
+            return None
+        b = self._bundle_from_arrays(z)
         # the RNG payload is applied only when a caller accepts the crumb
         # (_commit_crumb_rng), so a discarded load leaves the streams as
         # they are
-        b._rng_payload = rng_payload
-        self.logger.info(f"resumed breadcrumb {path}")
+        b._rng_payload = None
+        if "py_rng_state" in z:
+            b._rng_payload = (z["py_rng_state"].tobytes(), z.get("torch_rng"))
         return b
 
     def _commit_crumb_rng(self, bundle) -> None:

@@ -148,7 +148,7 @@ def _jax_refs(x):
 def runs():
     x = _inputs()
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        port = ex.submit(t_mesh.spawn, checks.sequence, 4,
+        port = ex.submit(t_mesh.spawn, checks.sequence, 4, device="cpu",
                          args=(_port_jobs(x),), timeout=120.0)
         refs = _jax_refs(x)
         ranks = port.result()

@@ -6,7 +6,9 @@ hierarchical_training or batched fit is compiled here).
   with its budgets cut to keep the run short): the ranks end
   bit-equal, the root covers every frame and passes the PSNR gate, a run
   ended after its leaves and resumed from its crumbs ends where the
-  uninterrupted run did, and the JAX package loads the root's model.npz;
+  uninterrupted run did, and the JAX package loads the root's model.npz.
+  Each rank works in a directory of its own, as on hosts that share no
+  disk: only rank 0's holds the crumbs and Phase A's poses;
 - `ht3dgs_torch.run.main(["--distributed", ...], device="cpu")` on 2
   ranks with a 2 x 2 mesh configured, which the world is too small for:
   the leaves take the sequential path (the root's 1 x 2 mesh fits), and
@@ -78,13 +80,33 @@ def mesh_cfg(img_dir, depth_dir, expname="mesh"):
     return model, pipe, optim
 
 
+def train_and_resume(tmp_path_factory, world, n_frames=FRAMES):
+    d = str(tmp_path_factory.mktemp(f"mesh{world}"))
+    img, depth = _video(d, n_frames, H, W, 200)
+    a, c = zip(*t_mesh.spawn(checks.train_and_resume, world, device="cpu",
+                             args=(img, d, mesh_cfg(img, depth)),
+                             timeout=120.0))
+    return a, c
+
+
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("mesh4"))
-    img, depth = _video(d, FRAMES, H, W, 200)
-    a, c = zip(*t_mesh.spawn(checks.train_and_resume, 4, args=(
-        img, d, mesh_cfg(img, depth)), timeout=120.0))
-    return a, c
+    return train_and_resume(tmp_path_factory, 4)
+
+
+def assert_resumed(a, c):
+    """The resumed run (c) ends with the uninterrupted run's (a) root,
+    poses and generator on every rank, though the stopped run left its
+    resume files in rank 0's directory alone."""
+    assert any(f.startswith("chkpnt") for f in c[0]["resume_files"])
+    assert "pose/pose_partial.npz" in c[0]["resume_files"]
+    for rc in c[1:]:
+        assert rc["resume_files"] == []
+    for ra, rc in zip(a, c):
+        assert rc["digest"] == ra["digest"]
+        np.testing.assert_array_equal(rc["poses"], ra["poses"])
+        np.testing.assert_array_equal(rc["gen"], ra["gen"])
+        assert rc["global_iteration"] == ra["global_iteration"]
 
 
 def test_hierarchy_2x2_ranks_bit_equal(four):
@@ -112,11 +134,9 @@ def test_hierarchy_2x2_ranks_bit_equal(four):
 
 def test_hierarchy_2x2_crumb_resume(four):
     """A run ended after its leaf chunks and merges, then resumed from the
-    crumbs, ends with the uninterrupted run's root on every rank."""
-    a, c = four
-    for ra, rc in zip(a, c):
-        assert rc["digest"] == ra["digest"]
-        np.testing.assert_array_equal(rc["poses"], ra["poses"])
+    crumbs in rank 0's directory, ends with the uninterrupted run's root
+    on every rank."""
+    assert_resumed(*four)
 
 
 def test_hierarchy_2x2_root_loads_in_jax(four):
@@ -160,7 +180,8 @@ def test_run_main_distributed_two_ranks_sequential(tmp_path):
                 "  num_iterations_per_frame_each_level: [2, 2, 2]\n")
     argv = ["--mode", "train", "--distributed"] + _cli_args(img, depth,
                                                             config)
-    t_mesh.spawn(checks.run_main, 2, args=(argv, d), timeout=120.0)
+    t_mesh.spawn(checks.run_main, 2, device="cpu", args=(argv, d),
+                 timeout=120.0)
     out = os.path.join(d, "output", "dist", "s_x")
     with open(os.path.join(out, "output.log")) as f:
         log = f.read()
