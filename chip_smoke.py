@@ -34,19 +34,23 @@ Phases (any failure exits non-zero):
    repo's "full" tier (a synthetic 16-frame video at 256x192 from 4,000
    Gaussians, frames and depths in memory, the tier's recipe and budgets,
    the root's MSS budgets cut, see tier_configs):
-   Phase A, two leaves with densify/prune, a merge, the root's MSS phase 1
-   and 2, the eval sweep and the checkpoint. Checks: finite relative poses
-   within 3 degrees of the truth, the root covering every frame, train-view
-   PSNR above 18 dB, model.npz reloading to a bit-equal render, and each
-   kernel launched at least once per step in every trainer phase;
+   Phase A (batched steps of 4 models), two leaves with densify/prune, a
+   merge, the root's MSS phase 1 and 2, the eval sweep (batched renders)
+   and the checkpoint. Checks: finite relative poses within 3 degrees of
+   the truth, the root covering every frame, train-view PSNR above 18 dB,
+   model.npz reloading to a bit-equal render, each kernel launched at
+   least once per step in every trainer phase, and in Phase A K2 once per
+   batched step; it prints steps and model-steps per trainer phase;
 9. the eval path on phase 8's root, with every launch count at 0 first:
    eval_pose (ATE/RPE equal to phase 8's to 1e-6), eval_nvs (16 frames x
-   50 test-time pose steps, mean PSNR above 18 dB, K1 and K2
-   once per pose step), render_nvs (120 PNGs, each the render it holds,
+   50 test-time pose steps as 50 batched steps of one shared model under
+   16 poses, mean PSNR above 18 dB, K1 and K2 once per batched step),
+   render_nvs (120 PNGs, each the render it holds,
    finite and not constant), the SIBR viewer bridge on a loopback port (4
    requests at 256x192 and 4 at 1920x1080, each reply byte for byte the
    uint8 of render_eval at the same camera) and a PLY round trip that
-   renders frame 0 bit for bit; then the host share of one pose step;
+   renders frame 0 bit for bit; then the host share of one batched pose
+   step;
 10. IFRNet and LPIPS with seeded random weights: the card (float32, no
    TF32) against the CPU on a 256x192 pair (IFRNet max |d| <= 1e-4, LPIPS
    relative <= 1e-5), then the median ms, peak memory and kernel launches
@@ -68,7 +72,17 @@ Phases (any failure exits non-zero):
    and resumed from the crumbs and poses in rank 0's directory alone
    under a process-group timeout of half the root's seconds, which ranks
    2 and 3 wait out: the resumed root equals the uninterrupted one on
-   every rank (digest, poses, generator).
+   every rank (digest, poses, generator);
+12. the batch axis at the operating point: 4 perturbed copies of phase 2's
+   scene at one capacity. One batched Phase A step (phase_a.fit_step)
+   against gaussian_train_step on each model, and one batched pose step
+   of one model under 4 poses against pose_train_step on each, under
+   deterministic algorithms (phase 11's tolerances); K1 and K2 launched
+   once per batched step; the batched K1/K2 outputs equal to one launch
+   per image's tiles bit for bit; K1/K2 against their plain versions and
+   timed at the 4 x 8160-tile launch; the batched step's time against the
+   4 single steps (batched, singles, singles, batched), its host share and
+   the peak memory.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -692,8 +706,9 @@ def tier_configs(depth_dir: str):
 
 
 class StepCounter:
-    """Counts training steps and kernel launches per trainer phase: wraps
-    the step functions the trainer calls and the trainer's PhaseTimer."""
+    """Counts training steps (a batched step once), the model-steps in
+    them and kernel launches per trainer phase: wraps the step functions
+    the trainer calls and the trainer's PhaseTimer."""
 
     def __init__(self, B, timer):
         import collections
@@ -701,6 +716,7 @@ class StepCounter:
         self.B, self.timer = B, timer
         self.current = None
         self.steps = collections.Counter()
+        self.model_steps = collections.Counter()
         self.launches = collections.defaultdict(collections.Counter)
         phase = timer.phase
 
@@ -722,15 +738,29 @@ class StepCounter:
         return {"blend_fwd": self.B.blend_fwd.launches,
                 "blend_bwd": self.B.blend_bwd.launches}
 
-    def wrap(self, module, name: str):
+    def wrap(self, module, name: str, models=lambda a: 1):
+        """models(args): the models one call steps."""
         fn = getattr(module, name)
 
         def counted(*a, **kw):
             self.steps[self.current] += 1
+            self.model_steps[self.current] += models(a)
             return fn(*a, **kw)
 
         setattr(module, name, counted)
         return fn
+
+    def wrap_steps(self):
+        """Wrap the step functions the trainer calls: Phase A's batched
+        steps (models: the targets' or tangents' leading axis) and
+        gaussian_train_step. Returns [(module, name, original)]."""
+        from ht3dgs_torch.train import phase_a
+        from ht3dgs_torch.train import step as step_lib
+
+        return [(m, n, self.wrap(m, n, size)) for m, n, size in (
+            (phase_a, "fit_step", lambda a: a[3].shape[0]),
+            (phase_a, "pose_step", lambda a: a[1].shape[0]),
+            (step_lib, "gaussian_train_step", lambda a: 1))]
 
 
 def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
@@ -793,7 +823,6 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
     import torch
 
     from ht3dgs_torch.eval import pose_eval
-    from ht3dgs_torch.train import phase_a
     from ht3dgs_torch.train import step as step_lib
 
     t0 = time.perf_counter()
@@ -804,9 +833,7 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
               f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
         counter = StepCounter(B, tr.timer)
-        originals = [(m, n, counter.wrap(m, n)) for m, n in (
-            (phase_a, "_fit_step"), (phase_a, "_pose_step"),
-            (step_lib, "gaussian_train_step"))]
+        originals = counter.wrap_steps()
         try:
             B.blend_fwd.launches = 0
             B.blend_bwd.launches = 0
@@ -834,7 +861,8 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         total = ph.get("total_s", 0.0)
         per = f"{1e3 * total / n:.2f} ms per step" if n else "no steps"
         print(f"phase 8 [{name}]: {total:.3f} s x{ph.get('count', 0)}, "
-              f"{n} steps, {per}, launches {dict(counter.launches[name])}")
+              f"{n} steps ({counter.model_steps[name]} model-steps), {per}, "
+              f"launches {dict(counter.launches[name])}")
     rot_err = rotation_errors(tr, scene)
     ev = pose_eval.evaluate_poses(scene.poses_w2c,
                                   bundle.poses[:TIER_FRAMES])
@@ -854,6 +882,12 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         for k in ("blend_fwd", "blend_bwd"):
             check(counter.launches[name][k] >= n,
                   f"phase 8 [{name}]: {k} launched once per step")
+    # Phase A runs batched steps alone: one K1 and one K2 each
+    n_a = counter.steps["phase_a"]
+    check(counter.model_steps["phase_a"] > n_a > 0,
+          "phase 8 [phase_a]: batched steps of several models")
+    check(counter.launches["phase_a"]["blend_bwd"] == n_a,
+          "phase 8 [phase_a]: K2 launched once per batched step")
     check(sum(counter.steps.values()) > 0 and all(launches.values()),
           "phase 8 ran steps and both kernels")
 
@@ -1016,19 +1050,20 @@ def phase_eval(B, device, ctx):
         check(abs(res[key] - ev8[key]) <= 1e-6,
               f"eval_pose {key} equals phase 8's to 1e-6")
 
-    n_pose = [0]
+    n_pose = [0, 0]    # batched pose steps, model-steps in them
 
     def counting(fn):
         def step(*a, **kw):
             n_pose[0] += 1
+            n_pose[1] += a[1].shape[0]
             return fn(*a, **kw)
         return step
 
     tr.sched.eval_nvs_epochs = EVAL_NVS_EPOCHS
-    with wrapped(phase_a, "_pose_step", counting):
+    with wrapped(phase_a, "pose_step", counting):
         res, wall, k = run_counted(B, tr.eval_nvs)
     epochs = tr.sched.eval_nvs_epochs
-    report("eval_nvs", wall, k, n_pose[0], "pose steps")
+    report("eval_nvs", wall, k, n_pose[0], "batched pose steps")
     for f, p, s_, l_ in res["rows"]:
         print(f"phase 9: eval_nvs frame {f}: PSNR {p:.3f} SSIM {s_:.4f} "
               f"LPIPS {l_:.3f}")
@@ -1036,12 +1071,15 @@ def phase_eval(B, device, ctx):
           f"({res['psnr'] - psnr8:+.3f} vs phase 8's train-view "
           f"{psnr8:.3f}), SSIM {res['ssim']:.4f}, LPIPS {res['lpips']:.3f} "
           f"(NaN without weights); {epochs} epochs, batch "
-          f"{tr.pipe_cfg.eval_nvs_batch}")
-    check(n_pose[0] == TIER_FRAMES * epochs,
-          f"eval_nvs ran {TIER_FRAMES} x {epochs} pose steps")
+          f"{tr.pipe_cfg.eval_nvs_batch}: {n_pose[0]} batched steps of "
+          f"{n_pose[1]} model-steps")
+    n_batches = -(-TIER_FRAMES // tr.pipe_cfg.eval_nvs_batch)
+    check(n_pose == [n_batches * epochs, TIER_FRAMES * epochs],
+          f"eval_nvs ran {n_batches} x {epochs} batched steps of "
+          f"{TIER_FRAMES} x {epochs} pose steps")
     check(res["psnr"] > MIN_PSNR, f"eval_nvs mean PSNR > {MIN_PSNR} dB")
-    check(k["blend_fwd"] >= n_pose[0] and k["blend_bwd"] >= n_pose[0],
-          "eval_nvs: K1 and K2 launched once per pose step")
+    check(k["blend_fwd"] >= n_pose[0] and k["blend_bwd"] == n_pose[0],
+          "eval_nvs: K1 and K2 launched once per batched pose step")
     poses_nvs = res["poses"]
 
     images = []
@@ -1126,16 +1164,21 @@ def phase_eval(B, device, ctx):
         check(payload == want.tobytes(),
               f"viewer {w}x{h}: payload equals render_eval's bytes")
 
-    base = se3.se3_from_matrix(torch.as_tensor(poses_nvs[0], device=device))
-    gt, cam = tr.device_frame("rgb", 0), tr.camera_for(0)
-    opt = step_lib.init_pose_opt(device)
-    delta = torch.zeros(6, device=device)
-    step_ms, busy_ms = host_share(lambda: phase_a._pose_step(
-        st, delta, base, opt, cam, gt, tr.sched.rotation_lr, mode=tr._mode,
-        tile_args=tr._tile_args, lambda_dssim=tr.sched.lambda_dssim))
-    print(f"phase 9: test-time pose step at {TIER_W}x{TIER_H}: median "
-          f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / step_ms:.1f}%), host share "
+    # eval_nvs's step: one model under a chunk of test-time poses
+    nb = min(tr.pipe_cfg.eval_nvs_batch, TIER_FRAMES)
+    bases = se3.se3_from_matrix(torch.as_tensor(poses_nvs[:nb],
+                                                device=device))
+    gts = torch.stack([tr.device_frame("rgb", f) for f in range(nb)])
+    cams = phase_a.stack_cameras([tr.camera_for(f) for f in range(nb)])
+    opt = phase_a.init_pose_opts(nb, device)
+    deltas = torch.zeros(nb, 6, device=device)
+    step_ms, busy_ms = host_share(lambda: phase_a.pose_step(
+        st, deltas, bases, opt, cams, gts, tr.sched.rotation_lr,
+        shared_state=True, mode=tr._mode, tile_args=tr._tile_args,
+        lambda_dssim=tr.sched.lambda_dssim))
+    print(f"phase 9: test-time batched pose step ({nb} poses) at "
+          f"{TIER_W}x{TIER_H}: median {step_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}%), host share "
           f"{100 * (1 - busy_ms / step_ms):.1f}%")
     return launches
 
@@ -1357,7 +1400,8 @@ def mesh_tile_args(longest: int) -> dict:
     return dict(tile_h=16, tile_w=16, max_per_tile=K, dup_factor=MESH_DUP)
 
 
-def compare_step(got, ref, what: str, params: bool = True) -> dict:
+def compare_step(got, ref, what: str, params: bool = True,
+                 phase: str = "11") -> dict:
     """A sharded step's (state, opt, metrics) against the single-device
     step's: loss 1e-5 relative; gradients (the first Adam moments after
     one step from zero, 0.1 x the gradient) 1e-4 of their max; new
@@ -1398,7 +1442,7 @@ def compare_step(got, ref, what: str, params: bool = True) -> dict:
         if k in gm:
             check(int(gm[k]) == int(rm[k]), f"{what}: {k} equal "
                   f"({int(gm[k])} vs {int(rm[k])})")
-    print(f"phase 11: {what} vs gaussian_train_step: loss "
+    print(f"phase {phase}: {what} vs gaussian_train_step: loss "
           f"{float(gm['loss']):.8f} vs {float(rm['loss']):.8f}; relative "
           "errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     return errs
@@ -1565,8 +1609,7 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
     from ht3dgs_torch.parallel import checks
     from ht3dgs_torch.parallel import mesh as mesh_lib
     from ht3dgs_torch.raster import blend as B
-    from ht3dgs_torch.train import hierarchy, parallel_nonleaf, phase_a
-    from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.train import hierarchy, parallel_nonleaf
 
     os.environ.update(CUBLAS_DETERMINISTIC)
     device = mesh_lib.rank_device("cuda")
@@ -1600,9 +1643,7 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
             deterministic()
         return phase_a
 
-    originals = [(m, n, counter.wrap(m, n)) for m, n in (
-        (phase_a, "_fit_step"), (phase_a, "_pose_step"),
-        (step_lib, "gaussian_train_step"))]
+    originals = counter.wrap_steps()
     patches = [(mesh_lib, "build_hierarchy_step", counted_builder),
                (hierarchy.HTGaussianTrainer, "_share_trainer_state",
                 counted_share),
@@ -1893,6 +1934,209 @@ def host_share(fn, reps: int = 20, profiled: int = 5):
     return statistics.median(times), busy_us / 1e3 / profiled
 
 
+# phase 12: the batch axis at the operating point
+BATCH = 4
+
+
+@contextlib.contextmanager
+def deterministic_block():
+    """Deterministic algorithms inside the block only (index_add_ then sums
+    in a fixed order). warn_only: cuBLAS's products run as they are, on
+    the workspace this process already has."""
+    import warnings
+
+    import torch
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def compare_pose(got, ref, what: str) -> None:
+    """A batched pose step's model against pose_train_step: loss 1e-5
+    relative; gradient (the first Adam moment after one step from zero)
+    1e-4 of its max; new tangent 1e-5 where both gradients are above 1e-6
+    of the max."""
+    (gd, gm, gl), (rd, rm, rl) = got, ref
+    e_loss = abs(gl - rl) / abs(rl)
+    scale = float(rm.abs().max())
+    e_grad = float((gm - rm).abs().max()) / scale
+    both = (gm.abs() > 1e-6 * scale) & (rm.abs() > 1e-6 * scale)
+    e_new = float(((gd - rd).abs() / rd.abs().clamp(min=1.0))[both].max())
+    print(f"phase 12: {what} vs pose_train_step: loss {gl:.8f} vs "
+          f"{rl:.8f}; relative errors loss {e_loss:.2e}, grad {e_grad:.2e}, "
+          f"new tangent {e_new:.2e}")
+    check(e_loss <= 1e-5, f"{what}: loss 1e-5 relative")
+    check(e_grad <= 1e-4, f"{what}: gradient 1e-4 of its max")
+    check(e_new <= 1e-5, f"{what}: new tangent 1e-5")
+
+
+def phase_batch(B, state, cam, target, device, seed) -> dict:
+    """Phase 12: BATCH perturbed copies of the trained-stats scene at one
+    capacity. One batched Phase A step (phase_a.fit_step) against
+    gaussian_train_step on each model, and one batched shared-state pose
+    step (one model under BATCH poses, as eval_nvs) against
+    pose_train_step on each pose, under deterministic algorithms; K1 and
+    K2 once per batched step; the batched K1/K2 outputs against one launch
+    per image's tiles; K1/K2 timed at the B*T-tile launch; the batched
+    step against the BATCH single steps, its host share and peak memory.
+    Returns the launches of the batched steps (the path)."""
+    import torch
+
+    from ht3dgs_torch.core import adam
+    from ht3dgs_torch.core.se3 import se3_exp
+    from ht3dgs_torch.raster.projection import project
+    from ht3dgs_torch.raster.tiled import build_tile_lists
+    from ht3dgs_torch.train import phase_a
+    from ht3dgs_torch.train import step as step_lib
+
+    models = [perturbed(state, seed + b, device) for b in range(BATCH)]
+    stacked = phase_a.stack_states(models)
+    cams = phase_a.stack_cameras([cam] * BATCH)
+    gts = target.expand(BATCH, *target.shape).contiguous()
+    lrs = {k: torch.full((BATCH,), v, device=device) for k, v in LRS.items()}
+    active = torch.ones(BATCH, dtype=torch.bool, device=device)
+    opt0 = phase_a.stack_opts([adam.init(m.params()) for m in models])
+    path = {"blend_fwd": 0, "blend_bwd": 0}
+
+    def fit_step():
+        return phase_a.fit_step(stacked, opt0, cams, gts, lrs, active,
+                                mode="tiled", tile_args=TILE_ARGS,
+                                lambda_dssim=0.2)
+
+    def counted(fn):
+        out, wall, k = run_counted(B, fn)
+        for name in path:
+            path[name] += k[name]
+        check(k == {"blend_fwd": 1, "blend_bwd": 1},
+              f"phase 12: K1 and K2 launched once per batched step ({k})")
+        return out, wall
+
+    # 12a: the batched fit step against gaussian_train_step per model
+    with deterministic_block():
+        (st, opt, m), _ = counted(fit_step)
+        got = list(zip(phase_a.unstack_states(st),
+                       [phase_a._index(opt, b) for b in range(BATCH)]))
+        for b, model in enumerate(models):
+            ref = step_lib.gaussian_train_step(
+                model, adam.init(model.params()), cam, target, LRS,
+                mode="tiled", tile_args=TILE_ARGS, track_stats=False)
+            compare_step((*got[b], {"loss": m["loss"][b]}), ref,
+                         f"batched fit step, model {b}", phase="12")
+    del st, opt, got, ref
+
+    # 12b: one model under BATCH poses against pose_train_step per pose
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    bases = se3_exp(0.03 * torch.randn(BATCH, 6, generator=g,
+                                       device=device))
+    pose_target = step_lib.render_eval(state, cam, mode="tiled",
+                                       tile_args=POSE_TILE_ARGS)["image"]
+    pose_gts = pose_target.expand(BATCH, *pose_target.shape).contiguous()
+    deltas0 = torch.zeros(BATCH, 6, device=device)
+    pose_opt0 = phase_a.init_pose_opts(BATCH, device)
+
+    def pose_step():
+        return phase_a.pose_step(state, deltas0, bases, pose_opt0, cams,
+                                 pose_gts, POSE_LR, shared_state=True,
+                                 mode="tiled", tile_args=POSE_TILE_ARGS,
+                                 lambda_dssim=0.2)
+
+    with deterministic_block():
+        (d, popt, losses), _ = counted(pose_step)
+        for b in range(BATCH):
+            rd, ropt, rm = step_lib.pose_train_step(
+                state, torch.zeros(6, device=device), bases[b],
+                step_lib.init_pose_opt(device), cam, pose_target, POSE_LR,
+                mode="tiled", tile_args=POSE_TILE_ARGS)
+            compare_pose((d[b], popt.m["pose"][b], float(losses[b])),
+                         (rd, ropt.m["pose"], float(rm["loss"])),
+                         f"batched pose step, pose {b}")
+
+    # 12c: the batched kernel launch against one launch per image
+    with torch.no_grad():
+        proj = project(stacked.means, stacked.scales(), stacked.quats,
+                       stacked.opacities(), stacked.sh(), stacked.live, cams,
+                       stacked.active_sh_degree[0], stacked.max_sh_degree)
+        ent, meta, total, nd_m, nd_tile, _ = build_tile_lists(
+            proj, cam.height, cam.width, **TILE_ARGS)
+        del proj
+        T, P = ent.shape[0] // BATCH, 256
+        fwd = B.blend_fwd(ent, meta, 16, 16)
+        g = torch.Generator(device=device).manual_seed(seed + 4)
+        cts = [torch.randn(s, generator=g, device=device) / P
+               for s in ((BATCH * T, P, 3), (BATCH * T, P), (BATCH * T, P))]
+        bwd = B.blend_bwd(ent, meta, fwd[1], fwd[3], *cts, 16, 16)
+        same = True
+        for b in range(BATCH):
+            r = slice(b * T, (b + 1) * T)
+            f1 = B.blend_fwd(ent[r], meta[r], 16, 16)
+            b1 = B.blend_bwd(ent[r], meta[r], f1[1], f1[3],
+                             *(c[r] for c in cts), 16, 16)
+            same &= all(torch.equal(x[r], y) for x, y in zip(fwd, f1))
+            same &= torch.equal(bwd[r], b1)
+        del fwd, bwd, cts
+    print(f"phase 12: batched binning of {BATCH} models: {BATCH * T} tiles, "
+          f"entries {total.tolist()}, dropped m {nd_m.tolist()} tile "
+          f"{nd_tile.tolist()}")
+    check(same, "phase 12: batched K1/K2 equal one launch per image's tiles "
+          "bit for bit")
+    # K1/K2 at the B*T-tile launch against their plain versions, timed
+    rec_fwd, ncon, t_fin, _ = phase_fwd(B, ent, meta, P)
+    rec_bwd, _, _ = phase_bwd(B, ent, meta, t_fin, ncon, P, seed)
+    del ent, meta, ncon, t_fin
+    for r in (rec_fwd, rec_bwd):
+        print(f"phase 12: {r['name']} at {BATCH * T} tiles: {r['ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms")
+
+    # 12d: times, in this order: batched, singles, singles, batched
+    def singles():
+        for model in models:
+            step_lib.gaussian_train_step(
+                model, adam.init(model.params()), cam, target, LRS,
+                mode="tiled", tile_args=TILE_ARGS, track_stats=False)
+
+    def wall_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    order = [("batched", fit_step), ("singles", singles),
+             ("singles", singles), ("batched", fit_step)]
+    ms = {}
+    for name, fn in order:
+        ms.setdefault(name, []).append(wall_ms(fn))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fit_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms, busy_ms = host_share(fit_step, reps=10, profiled=3)
+    pose_ms, pose_busy = host_share(pose_step, reps=5, profiled=2)
+    print(f"phase 12: batched fit step of {BATCH} models at {W}x{H}: median "
+          f"{ms['batched']} ms against {BATCH} single steps "
+          f"{ms['singles']} ms (batched, singles, singles, batched); "
+          f"host share {100 * (1 - busy_ms / step_ms):.1f}% ({busy_ms:.3f} "
+          f"of {step_ms:.3f} ms on the device); peak memory {peak:.3f} GiB")
+    print(f"phase 12: batched pose step of {BATCH} poses: {pose_ms:.3f} ms, "
+          f"device busy {pose_busy:.3f} ms, host share "
+          f"{100 * (1 - pose_busy / pose_ms):.1f}%")
+    return path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1983,12 +2227,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(B, device, args.seed, mesh_state, cam)
     del mesh_state
+    torch.cuda.empty_cache()
+    # 12. the batch axis at the operating point
+    batch_launches = phase_batch(B, state, cam, trained[2], device,
+                                 args.seed)
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
                    "hierarchy": hier_launches[rec["name"]],
                    "eval": eval_launches[rec["name"]],
                    "mesh": nccl_launches[rec["name"]]
-                   + mesh_launches[rec["name"]]}
+                   + mesh_launches[rec["name"]],
+                   "batch": batch_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:

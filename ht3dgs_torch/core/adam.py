@@ -4,6 +4,8 @@ Counterpart of `ht3dgs.core.adam`: the reference's torch.Adam (eps 1e-15,
 default betas) with one step count shared by all groups, per-group learning
 rates (0 freezes a group), and moments that densify can zero or permute
 row-wise. Updates return new tensors; nothing is modified in place.
+A stack of B models' states (Phase A's batched fits) has `step [B]` and
+per-model learning rates `[B]`: each model keeps its own bias correction.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ EPS = 1e-15
 class AdamState:
     m: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
-    step: torch.Tensor  # 0-dim int32, shared by every group
+    step: torch.Tensor  # 0-dim int32 shared by every group ([B] stacked)
 
 
 def init(params: Dict[str, torch.Tensor]) -> AdamState:
@@ -37,7 +39,9 @@ def init(params: Dict[str, torch.Tensor]) -> AdamState:
 @torch.no_grad()
 def apply(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
           state: AdamState, lrs: Dict[str, object]):
-    """One Adam step; returns (new_params, new_state)."""
+    """One Adam step; returns (new_params, new_state). With a stacked
+    state (`step [B]`, parameters [B, ...]) a learning rate may be a [B]
+    tensor; both broadcast over each model's rows."""
     step = state.step + 1
     t = step.float()
     bc1 = 1.0 - BETA1 ** t
@@ -45,10 +49,16 @@ def apply(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
     new_params, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads[k]
+        lr, b1, b2 = lrs[k], bc1, bc2
+        if step.ndim:
+            per_model = (-1,) + (1,) * (p.ndim - 1)
+            b1, b2 = bc1.reshape(per_model), bc2.reshape(per_model)
+            if isinstance(lr, torch.Tensor):
+                lr = lr.reshape(per_model)
         m = BETA1 * state.m[k] + (1.0 - BETA1) * g
         v = BETA2 * state.v[k] + (1.0 - BETA2) * (g * g)
-        update = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
-        new_params[k] = p - lrs[k] * update
+        update = (m / b1) / (torch.sqrt(v / b2) + EPS)
+        new_params[k] = p - lr * update
         new_m[k] = m
         new_v[k] = v
     return new_params, AdamState(m=new_m, v=new_v, step=step)

@@ -2,7 +2,10 @@
 
 Counterpart of `ht3dgs.core.camera`: `world_view` is the 4x4 world-to-camera
 matrix (R not transposed), matrices are in math convention
-(`p_clip = full_proj @ p`), images are channel-last `[H, W, 3]`.
+(`p_clip = full_proj @ p`), images are channel-last `[H, W, 3]`. A stack of
+B cameras of one image size (`train.phase_a.stack_cameras`) has
+`world_view [B, 4, 4]` and `fx`...`cy` `[B]`; the properties keep the
+leading [B].
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ def fov2focal(fov: float, pixels: float) -> float:
 class Camera:
     """Tensor fields on one device; `height`/`width` are plain ints."""
 
-    world_view: torch.Tensor   # [4, 4] world -> camera
-    fx: torch.Tensor           # 0-dim
+    world_view: torch.Tensor   # [4, 4] world -> camera ([B, 4, 4] stacked)
+    fx: torch.Tensor           # 0-dim ([B] stacked)
     fy: torch.Tensor
     cx: torch.Tensor
     cy: torch.Tensor
@@ -60,7 +63,8 @@ class Camera:
     @property
     def full_proj(self) -> torch.Tensor:
         w, h = float(self.width), float(self.height)
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        zero = torch.zeros(self.fx.shape, dtype=torch.float32,
+                           device=self.device)
         one = torch.ones_like(zero)
         rows = [
             [2.0 * self.fx / w, zero, -(w - 2.0 * self.cx) / w, zero],
@@ -69,14 +73,14 @@ class Camera:
              zero - (ZFAR * ZNEAR) / (ZFAR - ZNEAR)],
             [zero, zero, one, zero],
         ]
-        proj = torch.stack([torch.stack(r) for r in rows])
+        proj = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
         return proj @ self.world_view
 
     @property
     def camera_center(self) -> torch.Tensor:
-        R = self.world_view[:3, :3]
-        t = self.world_view[:3, 3]
-        return -(R.T @ t)
+        R = self.world_view[..., :3, :3]
+        t = self.world_view[..., :3, 3:]
+        return -(R.mT @ t)[..., 0]
 
 
 def make_camera(height: int, width: int, intrinsics: np.ndarray,

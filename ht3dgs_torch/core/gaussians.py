@@ -2,7 +2,9 @@
 
 Counterpart of `ht3dgs.core.gaussians`, with the same fields, shapes and
 parameter activations (scales = exp, opacities = sigmoid, quats stored
-`[x, y, z, w]` and normalised at use).
+`[x, y, z, w]` and normalised at use). A stack of B states
+(`train.phase_a.stack_states`) carries a leading [B] on every tensor
+field; `capacity` and the activations read both layouts.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class GaussianState:
 
     @property
     def capacity(self) -> int:
-        return self.means.shape[0]
+        return self.means.shape[-2]
 
     @property
     def device(self) -> torch.device:
@@ -55,14 +57,24 @@ class GaussianState:
                        ) -> "GaussianState":
         return dataclasses.replace(self, **params)
 
+    def _activate(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn(x), elementwise. A stack on the CPU runs model by model: the
+        CPU's SIMD loops compute a tensor's last elements apart from its
+        body, with another rounding of exp, so one op over the stack would
+        give a model other bits than its own render. On the card an
+        elementwise op computes every element alike."""
+        if self.means.ndim == 3 and x.device.type == "cpu":
+            return torch.stack([fn(m) for m in x.unbind(0)])
+        return fn(x)
+
     def scales(self) -> torch.Tensor:
-        return torch.exp(self.log_scales)
+        return self._activate(torch.exp, self.log_scales)
 
     def opacities(self) -> torch.Tensor:
-        return torch.sigmoid(self.opacity_logit[:, 0])
+        return self._activate(torch.sigmoid, self.opacity_logit[..., 0])
 
     def sh(self) -> torch.Tensor:
-        return torch.cat([self.sh_dc, self.sh_rest], dim=1)
+        return torch.cat([self.sh_dc, self.sh_rest], dim=-2)
 
 
 def inverse_sigmoid(x):

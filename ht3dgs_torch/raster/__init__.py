@@ -3,6 +3,9 @@
 `render()` is the entry point, the counterpart of `ht3dgs.raster.render`: it
 projects a GaussianState through a camera, optionally moved by an SE(3) pose
 that acts on the means only, and blends with the tiled path or the oracle.
+`render_batched()` is its counterpart under `jax.vmap`: B images in one
+pass, from B stacked models or from one model under B cameras or poses,
+with one blend launch over the B images' tiles.
 """
 
 from __future__ import annotations
@@ -36,6 +39,47 @@ def render(state: GaussianState, camera: Camera,
     Returns image [H,W,3], depth [H,W], alpha [H,W], radii [cap],
     valid [cap], and for the tiled path the entry and drop counters.
     """
+    return _render(state, camera, pose, bg_color, means2d_probe,
+                   scale_modifier, view_dependent, mode, tile_args)
+
+
+def render_batched(states_or_state: GaussianState, cameras: Camera,
+                   poses: Optional[torch.Tensor] = None, *,
+                   shared_state: bool = False, mode: str = "auto",
+                   tile_args: Optional[dict] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Render B images in one pass: `render` of each model b through
+    camera b (and pose b), as `jax.vmap(render)` does.
+
+    states_or_state: B models stacked by `train.phase_a.stack_states`
+      (leading [B] on every field), or with shared_state=True one model
+      that serves every camera and pose: its means are posed per image,
+      never copied B times as a state.
+    cameras: B cameras stacked by `train.phase_a.stack_cameras`.
+    poses: optional [B, 7]. A black background, as the batched fits use.
+    Returns image [B,H,W,3], depth and alpha [B,H,W], radii and valid
+    [B,cap], and for the tiled path the counters [B].
+    """
+    B = cameras.world_view.shape[0]
+    if cameras.world_view.ndim != 3 or (poses is not None
+                                        and poses.shape != (B, 7)):
+        raise ValueError("render_batched: cameras stacked to [B] and poses "
+                         "[B, 7] expected")
+    if shared_state != (states_or_state.means.ndim == 2):
+        raise ValueError("render_batched: a stacked state with "
+                         "shared_state=False, one state with True")
+    if not shared_state and states_or_state.means.shape[0] != B:
+        raise ValueError(f"render_batched: {states_or_state.means.shape[0]} "
+                         f"models for {B} cameras")
+    return _render(states_or_state, cameras, poses, None, None, 1.0, True,
+                   mode, tile_args)
+
+
+def _render(state, camera, pose, bg_color, means2d_probe, scale_modifier,
+            view_dependent, mode, tile_args) -> Dict[str, torch.Tensor]:
+    """Both entry points: the projection broadcasts the model's rows over
+    the cameras' and poses' leading [B], if any, and the rasterizers take
+    the batched Projected as it comes."""
     dev = state.device
     if bg_color is None:
         bg_color = torch.zeros(3, device=dev)
@@ -44,7 +88,7 @@ def render(state: GaussianState, camera: Camera,
     campos_override = None
     sh_means_override = None
     if pose is not None:
-        means_render = se3_act(pose, means)
+        means_render = se3_act(pose[..., None, :], means)
         # SH view directions: model-frame means and the detached
         # pose-inverse camera center
         campos_override = se3_inv(pose)[..., :3].detach()
@@ -52,9 +96,11 @@ def render(state: GaussianState, camera: Camera,
     else:
         means_render = means
 
+    # equal across a stack (stack_states checks it)
+    sh_degree = state.active_sh_degree.reshape(-1)[0]
     proj = project(means_render, state.scales(), state.quats,
                    state.opacities(), state.sh(), state.live, camera,
-                   state.active_sh_degree, state.max_sh_degree,
+                   sh_degree, state.max_sh_degree,
                    campos_override=campos_override,
                    sh_means_override=sh_means_override,
                    scale_modifier=scale_modifier)
@@ -84,4 +130,5 @@ def render(state: GaussianState, camera: Camera,
     return out
 
 
-__all__ = ["render", "project", "Projected", "rasterize_oracle"]
+__all__ = ["render", "render_batched", "project", "Projected",
+           "rasterize_oracle"]

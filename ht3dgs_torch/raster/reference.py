@@ -3,7 +3,10 @@
 Counterpart of `ht3dgs.raster.reference.rasterize_oracle`. O(N·H·W), so it
 serves small scenes (`render(mode="auto")` picks it for them) and tests; it
 is differentiable by autograd and has the blend's semantics (1/255 cutoff,
-0.99 clamp, sticky stop below 1e-4 transmittance).
+0.99 clamp, sticky stop below 1e-4 transmittance). A batched Projected
+([B, N] fields) composites its images one after another: the oracle is the
+per-image reference, launches no kernel, and so gives each image of a
+batch the very numbers of its single render.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, Projected
 def rasterize_oracle(proj: Projected, height: int, width: int,
                      bg_color: torch.Tensor,
                      chunk: int = 256) -> Dict[str, torch.Tensor]:
-    """Returns image [H,W,3], depth [H,W], alpha [H,W]."""
+    """Returns image [H,W,3], depth [H,W], alpha [H,W], with a leading [B]
+    for a batched Projected."""
+    if proj.depths.ndim == 2:
+        outs = [rasterize_oracle(Projected(*(x[b] for x in proj)), height,
+                                 width, bg_color, chunk)
+                for b in range(proj.depths.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     dev = proj.means2d.device
     order = torch.argsort(proj.depths, stable=True)   # invalid (+inf) last
     # invalid rows add nothing (alpha 0): composite the valid ones only

@@ -113,7 +113,8 @@ def eval_nvs(trainer, checkpoint: Optional[str] = None,
                           trainer.camera_for(0, pose=init[0]))
 
     # Test frames are independent: chunks of eval_nvs_batch frames go
-    # through one batched pose fit that shares the frozen model.
+    # through one batched pose fit that shares the frozen model, one
+    # batched render of the B poses per step.
     B = max(1, int(getattr(trainer.pipe_cfg, "eval_nvs_batch", 16)))
     deltas = []
     for c0 in range(0, seq_len, B):

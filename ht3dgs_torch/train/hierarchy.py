@@ -60,6 +60,7 @@ from ..core.gaussians import GaussianState
 from ..data.pointcloud import PointCloud
 from ..parallel import comm
 from ..parallel import mesh as mesh_lib
+from ..raster import render_batched
 from ..utils.image import save_image
 from ..utils.profiling import PhaseTimer
 from . import phase_a as pa
@@ -388,12 +389,13 @@ class HTGaussianTrainer(GaussianTrainer):
         return self._rel_matrices(deltas)
 
     def compute_relative_poses_batched(self):
-        """Phase A in chunks of phase_a_batch pairs, the fits of a chunk
-        interleaved model by model (train.phase_a). Every chunk's models
-        share one capacity, so their binning capacities (M) match the JAX
-        trainer's. With several ranks the models of each chunk are dealt
-        over them (model k to rank k mod world): each rank fits its own, and
-        the poses are gathered to every rank. The fits are independent, so
+        """Phase A in chunks of phase_a_batch pairs, each chunk's fits and
+        pose fits one batched step per iteration (train.phase_a). Every
+        chunk's models share one capacity, so they stack, and their binning
+        capacities (M) match the JAX trainer's. With several ranks the
+        models of each chunk are dealt over them (model k to rank k mod
+        world): each rank stacks and fits its own, and the poses are
+        gathered to every rank. The fits are independent, so
         the poses are a one-process run's."""
         B = self.pipe_cfg.phase_a_batch
         pairs = [(f, f - 1) for f in range(1, self.seq_len)
@@ -1232,10 +1234,12 @@ class HTGaussianTrainer(GaussianTrainer):
         return p, out
 
     def evaluate_on_training_images(self, save_images: bool = True):
-        """Train-view PSNR of every frame (the same numbers as the JAX
-        trainer's batched sweep), with GT | render PNGs under eval/."""
+        """Train-view PSNR of every frame, with GT | render PNGs under
+        eval/. Frames render in chunks of `eval_batch` (default 8, as the
+        JAX trainer's sweep), one batched render of the model per chunk."""
         out_dir = os.path.join(self.result_path, "eval")
         bundle = self.gs_bundle
+        B = max(1, int(getattr(self.pipe_cfg, "eval_batch", 8)))
         if self._mode in ("tiled", "pallas"):
             # settle tile capacities for THIS model: the presets may
             # silently truncate a big merged model
@@ -1245,18 +1249,23 @@ class HTGaussianTrainer(GaussianTrainer):
                 self, bundle.state,
                 self.camera_for(0, pose=bundle.get_RT(0)))
         psnrs = []
-        for fidx in range(self.seq_len):
-            img = _np(step_lib.render_eval(
-                bundle.state, self.camera_for(fidx, pose=bundle.get_RT(fidx)),
-                mode=self._mode, tile_args=self._tile_args)["image"])
-            gt = self.load_image(fidx)
-            mse = float(np.mean((img - gt) ** 2))
-            p = -10.0 * float(np.log10(max(mse, 1e-12)))
-            psnrs.append(p)
-            if save_images:
-                save_image(os.path.join(out_dir, f"{fidx:03d}.png"), img,
-                           gt_image=gt)
-            self.logger.info(f"Frame {fidx}: PSNR = {p:.3f}")
+        for c0 in range(0, self.seq_len, B):
+            idxs = list(range(c0, min(c0 + B, self.seq_len)))
+            cams = pa.stack_cameras([
+                self.camera_for(f, pose=bundle.get_RT(f)) for f in idxs])
+            with torch.no_grad():
+                imgs = _np(render_batched(
+                    bundle.state, cams, shared_state=True, mode=self._mode,
+                    tile_args=self._tile_args)["image"])
+            for img, fidx in zip(imgs, idxs):
+                gt = self.load_image(fidx)
+                mse = float(np.mean((img - gt) ** 2))
+                p = -10.0 * float(np.log10(max(mse, 1e-12)))
+                psnrs.append(p)
+                if save_images:
+                    save_image(os.path.join(out_dir, f"{fidx:03d}.png"), img,
+                               gt_image=gt)
+                self.logger.info(f"Frame {fidx}: PSNR = {p:.3f}")
         mean_psnr = float(np.mean(psnrs))
         self.logger.info(f"train-view mean PSNR: {mean_psnr:.3f}")
         print(f"train-view mean PSNR: {mean_psnr:.3f}")

@@ -2,9 +2,12 @@
 invariant depth, with λ = 0.2 and λ_depth = 0 by default.
 
 Counterpart of `ht3dgs.train.losses`. Images are channel-last [H, W, 3]
-in [0, 1]. The sharded variants take one row block of the image per rank
-of an `Axis` and return this rank's share of the loss: the shares sum over
-the ranks to the full image's loss, and so do their gradients.
+in [0, 1]; a batch [B, H, W, 3] gives each image its own loss and PSNR [B]
+(the SSIM blur runs as one convolution over the batch), and a batched
+step differentiates their sum. The sharded variants take one row block of
+the image per rank of an `Axis` and return this rank's share of the loss:
+the shares sum over the ranks to the full image's loss, and so do their
+gradients.
 
 Precision on the card: cuDNN runs float32 convolutions in TF32 unless told
 otherwise, so the SSIM blur runs with `cudnn.allow_tf32 = False`. Float32
@@ -39,15 +42,16 @@ def _window(window_size: int, device: torch.device) -> torch.Tensor:
 
 
 def _depthwise_blur(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
-    """[H, W, C] -> separable depthwise Gaussian blur, zero padding."""
+    """[..., H, W, C] -> separable depthwise Gaussian blur, zero padding,
+    the leading dimensions as one convolution batch."""
     C = x.shape[-1]
     k = window.shape[0]
-    y = x.permute(2, 0, 1)[None]                                  # [1,C,H,W]
+    y = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)       # [B,C,H,W]
     y = F.conv2d(y, window.reshape(1, 1, 1, k).repeat(C, 1, 1, 1),
                  padding=(0, k // 2), groups=C)
     y = F.conv2d(y, window.reshape(1, 1, k, 1).repeat(C, 1, 1, 1),
                  padding=(k // 2, 0), groups=C)
-    return y[0].permute(1, 2, 0)
+    return y.permute(0, 2, 3, 1).reshape(x.shape)
 
 
 @contextlib.contextmanager
@@ -77,10 +81,15 @@ def _ssim_map(img1: torch.Tensor, img2: torch.Tensor,
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
 
 
+# the per-image axes of [..., H, W, C]
+_IMAGE_DIMS = (-3, -2, -1)
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5)."""
-    return _ssim_map(img1, img2, window_size).mean()
+    """Mean SSIM of two [H, W, C] images (11x11 Gaussian window, σ 1.5),
+    or [B] of two [B, H, W, C] batches."""
+    return _ssim_map(img1, img2, window_size).mean(_IMAGE_DIMS)
 
 
 def ssim_sharded(img1: torch.Tensor, img2: torch.Tensor, axis: comm.Axis,
@@ -99,7 +108,7 @@ def ssim_sharded(img1: torch.Tensor, img2: torch.Tensor, axis: comm.Axis,
 
 
 def l1_loss(pred, gt):
-    return (pred - gt).abs().mean()
+    return (pred - gt).abs().mean(_IMAGE_DIMS)
 
 
 def compute_scale_and_shift(prediction, target, mask):
@@ -175,7 +184,11 @@ def compute_loss(image: torch.Tensor, gt_image: torch.Tensor,
                  depth_pred: Optional[torch.Tensor] = None,
                  depth_gt: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
-    zero = torch.zeros((), device=image.device)
+    """Loss terms of one image [H, W, 3], or [B] of a batch [B, H, W, 3]
+    (without the depth term, which the batched fits do not use)."""
+    if image.ndim == 4 and lambda_depth != 0.0:
+        raise ValueError("compute_loss: no depth term for a batch")
+    zero = torch.zeros(image.shape[:-3], device=image.device)
     rgb_full = (1.0 - lambda_dssim) * l1_loss(image, gt_image)
     dssim = 1.0 - ssim(image, gt_image) if lambda_dssim != 0.0 else zero
     if lambda_depth != 0.0 and depth_pred is not None \
@@ -190,5 +203,6 @@ def compute_loss(image: torch.Tensor, gt_image: torch.Tensor,
 
 
 def psnr(pred, gt):
-    mse = ((pred - gt) ** 2).mean()
+    """PSNR of one image, or [B] of a batch [B, H, W, C]."""
+    mse = ((pred - gt) ** 2).mean(_IMAGE_DIMS)
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
