@@ -82,7 +82,22 @@ Phases (any failure exits non-zero):
    per image's tiles bit for bit; K1/K2 against their plain versions and
    timed at the 4 x 8160-tile launch; the batched step's time against the
    4 single steps (batched, singles, singles, batched), its host share and
-   the peak memory.
+   the peak memory;
+13. the normal entry point from files on disk, as a user with a video
+   runs it: (a) every fixture of tests/torch_images/ decoded by the port's
+   own decoder (csrc/imgdec.cc, built in phase 1 with the host compiler)
+   to the SHA-256 of Pillow's arrays in its manifest, the 1080p frame's
+   LANCZOS 1600x900 resize included; (b) the host time of a 1080p JPEG
+   and PNG decode and of that resize (median of 10); (c) phase 8's tier
+   and cuts written as 16 PNG frames with .npy depths, a
+   transforms_train.json of the true poses and a cfg.yml, then
+   `run.main(["--mode", "train", "--config", cfg.yml])`, eval_pose and
+   eval_nvs in-process and eval_pose once more as `python -m
+   ht3dgs_torch`: phase 8's gates (poses within 3 degrees, train-view PSNR
+   above 18 dB), K1 and K2 launched, pose_eval.txt and test/test.txt
+   written; it prints one `files` line. It runs right after phase 8, so
+   that the two trainings of the tier are timed in the same state of the
+   process and the host.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -98,8 +113,10 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -2137,6 +2154,248 @@ def phase_batch(B, state, cam, target, device, seed) -> dict:
     return path
 
 
+# phase 13: the normal entry point from files on disk
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_images")
+DECODE_REPS = 10
+
+
+def fixture_digest(a: np.ndarray) -> dict:
+    """As tests/torch_images/generate.py records Pillow's arrays."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "dtype": str(a.dtype),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def host_ms(fn, reps: int = DECODE_REPS) -> float:
+    """Median host milliseconds of fn() over reps calls, after one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def yaml_value(v) -> str:
+    """A config value as the YAML subset writes it (floats keep a dot, as
+    YAML 1.1 needs for a float: 3e-3 would read as a string)."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        text = repr(v)
+        if "e" in text and "." not in text:
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{'' if exp[0] in '+-' else '+'}{exp}"
+        return text
+    if isinstance(v, list):
+        return "[" + ", ".join(yaml_value(x) for x in v) + "]"
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    return str(v)
+
+
+def files_config(path: str, img_dir: str, depth_dir: str) -> None:
+    """cfg.yml: phase 8's recipe and cuts (tier_configs) as the fields that
+    differ from the defaults, the frame folder for training and the same
+    folder's transforms_train.json (true poses) for the eval modes. Loading
+    it must give tier_configs' fields back."""
+    from ht3dgs_torch.utils.config import load_configs
+
+    want = tier_configs(depth_dir)
+    want[0].seq_name = "files"
+    want[0].FovX = 1.2
+    want[0].data_path_train = want[0].data_path_eval = img_dir
+    want[0].data_type_train, want[0].data_type_eval = "images_only", "blender"
+    want[2].eval_nvs_epochs = EVAL_NVS_EPOCHS
+    lines = ["# the full tier from files on disk (chip_smoke.py phase 13)"]
+    for section, cfg, default in zip(
+            ("ModelParams", "PipelineParams", "OptimizationParams"), want,
+            load_configs()):
+        lines.append(f"{section}:")
+        for f in dataclasses.fields(cfg):
+            v = getattr(cfg, f.name)
+            if v != getattr(default, f.name):
+                lines.append(f"    {f.name}: {yaml_value(v)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for got, ref in zip(load_configs(path), want):
+        check(dataclasses.asdict(got) == dataclasses.asdict(ref),
+              f"13: cfg.yml reads back as written "
+              f"({dataclasses.asdict(got)} != {dataclasses.asdict(ref)})")
+
+
+def phase_files(B, device, seed: int, workdir: str) -> dict:
+    """Phase 13: (a) the fixtures decoded here against Pillow's hashes,
+    (b) host times of a 1080p JPEG and PNG decode and the 1.6K resize,
+    (c) the full tier written as PNG files and trained by
+    `run.main(["--mode", "train", "--config", cfg.yml])`, then eval_pose
+    and eval_nvs in-process and eval_pose as `python -m ht3dgs_torch`.
+    Returns the kernel launches of the in-process runs."""
+    from ht3dgs_torch import run
+    from ht3dgs_torch.data import imgcodec, readers
+    from ht3dgs_torch.train import hierarchy
+    from ht3dgs_torch.utils import synthetic
+    from ht3dgs_torch.utils.image import write_png
+
+    # (a) the fixtures against Pillow's arrays
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, name)
+        check(fixture_digest(imgcodec.open_array(path))
+              == entry["open_array"], f"13: {name} open_array as Pillow's")
+        rgb = imgcodec.load_rgb8(path)
+        check(fixture_digest(rgb) == entry["load_rgb8"],
+              f"13: {name} load_rgb8 as Pillow's")
+        if "lanczos_1600x900" in entry:
+            check(fixture_digest(imgcodec.resize_lanczos_rgb8(rgb, 1600, 900))
+                  == entry["lanczos_1600x900"],
+                  f"13: {name} LANCZOS 1600x900 as Pillow's")
+
+    # (b) host times at 1080p
+    jpg = os.path.join(FIXTURES, "frame_1080p.jpg")
+    frame = imgcodec.load_rgb8(jpg)
+    png = os.path.join(workdir, "frame_1080p.png")
+    write_png(png, frame)
+    check(np.array_equal(imgcodec.load_rgb8(png), frame),
+          "13: write_png -> load_rgb8 round trip at 1080p")
+    ms = {"jpeg_1080p": host_ms(lambda: imgcodec.load_rgb8(jpg)),
+          "png_1080p": host_ms(lambda: imgcodec.load_rgb8(png)),
+          "lanczos_1080p_to_1600x900": host_ms(
+              lambda: imgcodec.resize_lanczos_rgb8(frame, 1600, 900))}
+
+    # (c) the tier from files
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        scene = synthetic.generate(n_frames=TIER_FRAMES, height=TIER_H,
+                                   width=TIER_W, n_gaussians=TIER_GAUSSIANS,
+                                   fovx=1.2, seed=seed, device=device)
+        img_dir = synthetic.write_images_only(
+            scene, os.path.abspath("images"),
+            depth_dir=os.path.abspath("depth"))
+        frames = []
+        for i, w2c in enumerate(scene.poses_w2c):
+            c2w = np.linalg.inv(w2c)
+            c2w[:3, 1:3] *= -1            # OpenCV -> NeRF/OpenGL axes
+            frames.append({"file_path": f"{i:04d}",
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(img_dir, "transforms_train.json"), "w") as f:
+            json.dump({"camera_angle_x": 1.2, "frames": frames}, f)
+        cfg = os.path.abspath("cfg.yml")
+        files_config(cfg, img_dir, os.path.abspath("depth"))
+
+        # the trainer and its PSNR, the steps it took (as phase 8 counts
+        # them, all phases together) and the seconds spent decoding frames
+        seen = {"decode_s": 0.0, "decodes": 0}
+        evaluate = hierarchy.HTGaussianTrainer.evaluate_on_training_images
+        load_image = readers.FrameInfo.load_image
+
+        def recorded(self, *a, **kw):
+            seen["trainer"], seen["psnr"] = self, evaluate(self, *a, **kw)
+            return seen["psnr"]
+
+        def timed_load(self):
+            t0 = time.perf_counter()
+            img = load_image(self)
+            seen["decode_s"] += time.perf_counter() - t0
+            seen["decodes"] += 1
+            return img
+
+        hierarchy.HTGaussianTrainer.evaluate_on_training_images = recorded
+        readers.FrameInfo.load_image = timed_load
+        counter = StepCounter(B, types.SimpleNamespace(
+            phase=lambda name: contextlib.nullcontext()))
+        originals = counter.wrap_steps()
+        B.blend_fwd.launches = 0
+        B.blend_bwd.launches = 0
+        try:
+            t0 = time.perf_counter()
+            run.main(["--mode", "train", "--config", cfg], device=str(device))
+            train_s = time.perf_counter() - t0
+            train_launches = launch_counts(B)
+            for m, n, fn in originals:
+                setattr(m, n, fn)
+            originals = []
+            train_decode = dict(s=seen["decode_s"], frames=seen["decodes"])
+            t0 = time.perf_counter()
+            for mode in ("eval_pose", "eval_nvs"):
+                run.main(["--mode", mode, "--config", cfg],
+                         device=str(device))
+            eval_s = time.perf_counter() - t0
+        finally:
+            hierarchy.HTGaussianTrainer.evaluate_on_training_images = \
+                evaluate
+            readers.FrameInfo.load_image = load_image
+            for m, n, fn in originals:
+                setattr(m, n, fn)
+        launches = launch_counts(B)
+        tr = seen["trainer"]
+        out = tr.result_path
+        # the root's size beside phase 8's, whose steps these compare with
+        root = tr.load_checkpoint(
+            os.path.join(out, "chkpnt", "model.npz")).state
+        sizes = {"capacity_growths": tr.n_capacity_grows,
+                 "root_live": int(root.n_live()),
+                 "root_capacity": root.capacity}
+        pose_txt = os.path.join(out, "pose", "pose_eval.txt")
+        test_txt = os.path.join(out, "test", "test.txt")
+        check(os.path.exists(pose_txt) and os.path.exists(test_txt),
+              "13: pose_eval.txt and test/test.txt written")
+        pose_line = open(pose_txt).read().strip()
+        nvs_line = open(test_txt).read().splitlines()[-1]
+        os.remove(pose_txt)
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        proc = subprocess.run(
+            [sys.executable, "-m", "ht3dgs_torch", "--mode", "eval_pose",
+             "--config", cfg], env=env, capture_output=True, text=True,
+            timeout=300)
+        proc_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"13: python -m ht3dgs_torch exits 0 ({proc.stderr[-2000:]})")
+        check(os.path.exists(pose_txt)
+              and open(pose_txt).read().strip() == pose_line,
+              "13: python -m ht3dgs_torch wrote the same pose_eval.txt")
+        with open(os.path.join(out, "phase_timing.json")) as f:
+            timing = json.load(f)
+    finally:
+        os.chdir(cwd)
+    rot_err = rotation_errors(tr, scene)
+    psnr = seen["psnr"]
+    check(tr.seq_len == TIER_FRAMES and all(
+        f._image is None and f.image_path.endswith(".png") for f in tr.data),
+        f"13: the {TIER_FRAMES} frames read from PNG files")
+    check(max(rot_err) < MAX_ROT_DEG,
+          f"13: relative-pose rotation error < {MAX_ROT_DEG} deg")
+    check(psnr > MIN_PSNR, f"13: train-view mean PSNR > {MIN_PSNR} dB")
+    check(all(train_launches.values()), "13: K1 and K2 launched in training")
+    check(launches["blend_fwd"] > train_launches["blend_fwd"],
+          "13: eval_nvs launched K1")
+    print("files " + json.dumps({
+        "fixtures": len(manifest), "fixtures_equal_pillow": len(manifest),
+        "host_ms_median_of_10": ms, "train_s": round(train_s, 3),
+        "trainer_phases_s": {k: round(v.get("total_s", 0.0), 3)
+                             for k, v in timing.items()},
+        "train_steps": counter.steps[None],
+        "train_model_steps": counter.model_steps[None], **sizes,
+        "train_frame_decodes": train_decode,
+        "eval_pose_and_nvs_s": round(eval_s, 3),
+        "subprocess_eval_pose_s": round(proc_s, 3),
+        "train_view_psnr": psnr, "max_rot_err_deg": max(rot_err),
+        "pose_eval": pose_line, "eval_nvs": nvs_line,
+        "launches": launches}))
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2160,7 +2419,8 @@ def main() -> None:
 
     # 1. build
     t0 = time.perf_counter()
-    for name, log in kernels.build().items():
+    for name, log in kernels.build(kernels.SOURCES
+                                   + kernels.HOST_SOURCES).items():
         for line in log.splitlines():
             if any(s in line for s in ("registers", "spill", "smem")):
                 print(f"ptxas [{name}] {line.strip()}")
@@ -2217,6 +2477,9 @@ def main() -> None:
     # 8-9. the hierarchical trainer, then the eval modes on its root
     with tempfile.TemporaryDirectory() as workdir:
         hier_launches, ctx = phase_hierarchy(B, device, args.seed, workdir)
+        # 13. the normal entry point from files on disk, next to phase 8
+        with tempfile.TemporaryDirectory() as files_dir:
+            files_launches = phase_files(B, device, args.seed, files_dir)
         eval_launches = phase_eval(B, device, ctx)
     # 10. the networks
     phase_networks(device, args.seed, ctx[2].frames)
@@ -2237,7 +2500,8 @@ def main() -> None:
                    "eval": eval_launches[rec["name"]],
                    "mesh": nccl_launches[rec["name"]]
                    + mesh_launches[rec["name"]],
-                   "batch": batch_launches[rec["name"]]}
+                   "batch": batch_launches[rec["name"]],
+                   "files": files_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:

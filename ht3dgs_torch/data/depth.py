@@ -1,7 +1,8 @@
 """Monocular-depth providers, counterpart of `ht3dgs.data.depth`.
 
-- "precomputed": `{dir}/{name}.npy` metric depth (no PIL), or 8/16-bit PNGs
-  (PIL, imported when a PNG is read or a map must be resized);
+- "precomputed": `{dir}/{name}.npy` metric depth, or 8/16-bit PNGs
+  (decoded by `imgcodec`; a map of another size is resized as Pillow's
+  BILINEAR resizes a float image);
 - "dpt"/"midas"/"zoe": torch-hub inference when the hub cache holds the
   weights, with the reference's disparity -> depth affine;
 - "constant"/"none": all-ones depth.
@@ -13,6 +14,8 @@ import os
 from typing import Callable, Optional
 
 import numpy as np
+
+from . import imgcodec
 
 NEAR = 0.01
 
@@ -57,20 +60,15 @@ class PrecomputedDepth(DepthProvider):
         if os.path.exists(npy):
             d = np.load(npy).astype(np.float32)
         else:
-            from PIL import Image
-
             png = os.path.join(self.dir, f"{name}.png")
-            d = np.asarray(Image.open(png), np.float32)
+            d = imgcodec.open_array(png).astype(np.float32)
             if d.max() > 255:
                 d = d / 65535.0
             else:
                 d = d / 255.0
         if d.shape != image.shape[:2]:
-            from PIL import Image as PILImage
-
             h, w = image.shape[:2]
-            d = np.asarray(PILImage.fromarray(d).resize((w, h),
-                                                        PILImage.BILINEAR))
+            d = imgcodec.resize_bilinear_f32(d, w, h)
         if self.is_disparity:
             d = disparity_to_depth(d, self.model_type)
         return np.maximum(d.astype(np.float32), NEAR)

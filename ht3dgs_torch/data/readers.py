@@ -3,9 +3,11 @@
 Dataset-type dispatch to a `SceneInfo` of per-frame `FrameInfo`s, with the
 reference's train/test split (every `sample_rate`-th frame is test; 2 for
 paths with "Family", else 8) and the 1.6K resolution cap. Images decode on
-first access as channel-last float32 [H, W, 3]; PIL is imported only there
-and where a reader opens an image for its size. A `FrameInfo` built with
-`_image` holds its frame in memory and needs no file.
+first access as channel-last float32 [H, W, 3], through `imgcodec` (the
+same pixels as the JAX package's Pillow calls, Pillow's LANCZOS resize
+included); a reader opens an image only for the size in its header. A
+`FrameInfo` built with `_image` holds its frame in memory and needs no
+file.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..core.camera import focal2fov, fov2focal
+from . import imgcodec
 
 
 @dataclass
@@ -40,12 +43,10 @@ class FrameInfo:
     def load_image(self) -> np.ndarray:
         if self._image is not None:
             return self._image
-        from PIL import Image
-
-        img = Image.open(self.image_path).convert("RGB")
-        if (img.width, img.height) != (self.width, self.height):
-            img = img.resize((self.width, self.height), Image.LANCZOS)
-        return np.asarray(img, dtype=np.float32) / 255.0
+        img = imgcodec.load_rgb8(self.image_path)
+        if img.shape[:2] != (self.height, self.width):
+            img = imgcodec.resize_lanczos_rgb8(img, self.width, self.height)
+        return img.astype(np.float32) / 255.0
 
     def gt_pose(self) -> Optional[np.ndarray]:
         if self.R is None:
@@ -105,10 +106,7 @@ def read_images_only(path: str, fovx: float, fovy: Optional[float] = None,
                    if p.endswith(IMG_EXTS))
     if not files:
         raise FileNotFoundError(f"no images under {path}")
-    from PIL import Image
-
-    with Image.open(files[0]) as im:
-        w0, h0 = im.size
+    w0, h0 = imgcodec.image_size(files[0])
     w, h = _target_resolution(w0, h0, resolution)
 
     # intrinsics rebuilt at load resolution (loadCam semantics: floor-divided
@@ -189,8 +187,6 @@ def read_blender(path: str, split_file: str = "transforms_train.json",
     """NeRF-synthetic transforms.json scenes (readNerfSyntheticInfo,
     the reference's scene/dataset_readers.py:375-414)."""
 
-    from PIL import Image
-
     def load(split):
         with open(os.path.join(path, f"transforms_{split}.json")) as f:
             meta = json.load(f)
@@ -198,8 +194,7 @@ def read_blender(path: str, split_file: str = "transforms_train.json",
         frames = []
         for i, fr in enumerate(meta["frames"]):
             img_path = os.path.join(path, fr["file_path"] + ".png")
-            with Image.open(img_path) as im:
-                w0, h0 = im.size
+            w0, h0 = imgcodec.image_size(img_path)
             w, h = _target_resolution(w0, h0, resolution)
             # nerf c2w (OpenGL) -> w2c OpenCV: flip y/z axes
             c2w = np.array(fr["transform_matrix"], dtype=np.float32)

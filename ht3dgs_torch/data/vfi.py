@@ -2,8 +2,8 @@
 counterpart of `ht3dgs.data.vfi`:
 
 - "blend": 0.5 (a + b), a dependency-free stand-in for a VFI network;
-- "precomputed": `{dir}/{i}_to_{i+1}.{png,jpg,npy}` midway frames (PIL only
-  for the images);
+- "precomputed": `{dir}/{i}_to_{i+1}.{png,jpg,npy}` midway frames (images
+  decoded by `imgcodec`);
 - "none": no VFI;
 - "ifrnet": the IFRNet network (`data.ifrnet`) on the trainer's device,
   from a converted IFRNet_Vimeo90K checkpoint.
@@ -16,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import ifrnet
+from . import ifrnet, imgcodec
 
 
 class VFIProvider:
@@ -36,15 +36,12 @@ class PrecomputedVFI(VFIProvider):
         self.dir = directory
 
     def __call__(self, img0, img1, pair_name):
-        from PIL import Image
-
         for ext in (".png", ".jpg", ".npy"):
             p = os.path.join(self.dir, pair_name + ext)
             if os.path.exists(p):
                 if ext == ".npy":
                     return np.load(p).astype(np.float32)
-                return np.asarray(Image.open(p).convert("RGB"),
-                                  np.float32) / 255.0
+                return imgcodec.load_rgb8(p).astype(np.float32) / 255.0
         raise FileNotFoundError(
             f"no precomputed VFI frame {pair_name} under {self.dir}")
 

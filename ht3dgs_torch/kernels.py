@@ -1,16 +1,22 @@
-"""Build and load the hand-written CUDA kernels of `csrc/`.
+"""Build and load the native code of `csrc/`: the hand-written CUDA kernels
+and the host-side image decoder.
 
-Each source is compiled by `nvcc` for sm_90a, with its own flags, into its
-own shared library with a plain C interface, loaded with ctypes. Libraries go
+Each CUDA source (`*.cu`) is compiled by `nvcc` for sm_90a, with its own
+flags; each host source (`*.cc`) by the host compiler `c++`, with one set of
+flags on every machine. Every source becomes a shared
+library of its own with a plain C interface, loaded with ctypes. Libraries go
 into `_build/` next to this file, named by a hash of the source, the headers
-of `csrc/` and the flags, so an edited source is rebuilt and an unchanged one
-is built once. Nothing is built when the module is imported: `load` builds at
-first use, and `build` starts one `nvcc` per source at once.
+of `csrc/`, the compiler and the flags, so an edited source is rebuilt and an
+unchanged one is built once. Nothing is built when the module is imported:
+`load` builds at first use, and `build` starts one compiler per source at
+once. Builds hold an `fcntl` lock on `_build/`, so processes that start at
+once (test workers) build a library once and never load a partial one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -21,7 +27,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("blend_fwd", "blend_bwd")
+SOURCES = ("blend_fwd", "blend_bwd")   # CUDA kernels, for the card
+HOST_SOURCES = ("imgdec",)              # host code, for every device
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # blend_fwd's termination test must round as the plain version's separate
@@ -31,6 +38,7 @@ NVCC_FLAGS = {
     "blend_fwd": _COMMON_FLAGS + ("-fmad=false",),
     "blend_bwd": _COMMON_FLAGS,
 }
+_HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argtypes, restype)
@@ -42,6 +50,13 @@ _SIGNATURES = {
     "blend_bwd": {
         "ht3dgs_blend_bwd": ([_p] * 8 + [_i] * 4 + [_p], ctypes.c_int),
         "ht3dgs_blend_chunk": ([], ctypes.c_int),
+    },
+    "imgdec": {
+        "ht3dgs_jpeg_info": ([_p, ctypes.c_int64, _p, _p, _i], ctypes.c_int),
+        "ht3dgs_jpeg_decode": ([_p, ctypes.c_int64, _p, ctypes.c_int64, _p,
+                                _i], ctypes.c_int),
+        "ht3dgs_png_unfilter": ([_p, ctypes.c_int64, ctypes.c_int64, _i, _p],
+                                ctypes.c_int64),
     },
 }
 
@@ -56,45 +71,62 @@ def _cuda_tool(tool: str) -> str:
     raise RuntimeError(f"{tool} not found (set CUDA_HOME or put it on PATH)")
 
 
+def _command(name: str):
+    """The compiler command for csrc/<name>, without its output path."""
+    if name not in HOST_SOURCES:
+        return [_cuda_tool("nvcc"), *NVCC_FLAGS[name],
+                str(CSRC / f"{name}.cu")]
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"c++ not found (put it on PATH) to build {name}")
+    return [cxx, *_HOST_FLAGS, str(CSRC / f"{name}.cc")]
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS[name]).encode())
+    cmd = _command(name)
+    h = hashlib.sha1(Path(cmd[-1]).read_bytes())
+    if name not in HOST_SOURCES:
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+    h.update(" ".join([os.path.basename(cmd[0])] + cmd[1:-1]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source that is not built yet, all at once.
-    Returns {name: nvcc's output} (the -Xptxas -v register, shared-memory
-    and spill report); an already built source maps to ''."""
+    Returns {name: the compiler's output} (for a kernel, the -Xptxas -v
+    register, shared-memory and spill report); an already built source
+    maps to ''."""
+    names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS[name], "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
     logs = {name: "" for name in names}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{logs[name]}")
-            continue
-        os.replace(tmp, out)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        procs = {}
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = _command(name)
+            cmd[-1:-1] = ["-o", str(tmp)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{logs[name]}")
+                continue
+            os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, building it if needed."""
+    """The built library of csrc/<name>, building it if needed."""
     if name not in _LIBS:
         path = _lib_path(name)
         if not path.exists():

@@ -4,13 +4,16 @@ Counterpart of `ht3dgs.utils.config`, field for field: the three parameter
 groups `ModelParams` / `PipelineParams` / `OptimizationParams` with YAML
 overrides, CLI flags over YAML, the same defaults. Equal configurations
 give equal field reprs, so a breadcrumb's config fingerprint is the same in
-both packages. `yaml` is imported only when a YAML file is read.
+both packages. The YAML files are read by `load_yaml`, a parser of the
+subset that config files use, so no YAML library is needed.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -163,10 +166,8 @@ def load_configs(yaml_path: Optional[str] = None, overrides=None):
     groups = {"ModelParams": model, "PipelineParams": pipe,
               "OptimizationParams": optim}
     if yaml_path:
-        import yaml
-
         with open(yaml_path) as f:
-            doc = yaml.safe_load(f) or {}
+            doc = load_yaml(f.read()) or {}
         for section, values in doc.items():
             tgt = groups.get(section)
             if tgt is None or not isinstance(values, dict):
@@ -247,3 +248,312 @@ def _coerce(key: str, value):
                                   and not isinstance(f.default, bool)):
                     return int(value)
     return value
+
+
+# ---------------------------------------------------------------------------
+# YAML subset
+# ---------------------------------------------------------------------------
+#
+# `load_yaml` reads what config files use: comments; block mappings nested
+# by indentation; block sequences (`- x`) and flow sequences (`[1, 2, 3]`);
+# plain, single-quoted and double-quoted scalars on one line. Plain scalars
+# resolve as PyYAML's `safe_load` resolves them (YAML 1.1): `1e-4` stays a
+# string (a float needs a dot, and an exponent needs a sign), yes/No/on/OFF
+# are bools, `~`/null/empty are None, 0x1F, 017 and sexagesimal 1:30 are
+# ints, .inf and .nan are floats. Anything else (anchors, aliases, tags,
+# block scalars, flow mappings, complex keys, merge keys, dates and
+# timestamps, binary ints, base-60 floats, escapes other than \\ and \"
+# in double quotes, several documents) raises ValueError with its line
+# number rather than being read some other way.
+
+_BOOL = {"yes": True, "true": True, "on": True,
+         "no": False, "false": False, "off": False}
+_RESOLVERS = (   # (first characters, regex, kind), tried in PyYAML's order
+    ("yYnNtTfFoO", re.compile(
+        r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+        r"|on|On|ON|off|Off|OFF)$"), "bool"),
+    ("-+0123456789.", re.compile(
+        r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+        r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+        r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
+        r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$"), "float"),
+    ("-+0123456789", re.compile(
+        r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+        r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$"),
+     "int"),
+    ("<", re.compile(r"^(?:<<)$"), "merge"),
+    ("~nN", re.compile(r"^(?:~|null|Null|NULL)$"), "null"),
+    ("0123456789", re.compile(r"^[0-9]{4}-[0-9]{2}-[0-9]{2}$"), "timestamp"),
+    ("0123456789", re.compile(
+        r"^[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt]|[ \t]+)[0-9]{1,2}"
+        r":[0-9]{2}:[0-9]{2}(?:\.[0-9]*)?"
+        r"(?:[ \t]*(?:Z|[-+][0-9]{1,2}(?::[0-9]{2})?))?$"), "timestamp"),
+    ("=", re.compile(r"^(?:=)$"), "value"),
+)
+
+
+class _YamlError(ValueError):
+    def __init__(self, lineno: int, msg: str):
+        super().__init__(f"YAML line {lineno}: {msg}")
+
+
+def _resolve(text: str, lineno: int):
+    """A plain scalar's value, as PyYAML's SafeLoader gives it."""
+    for first, rx, kind in _RESOLVERS:
+        if text[:1] not in first or not rx.match(text):
+            continue
+        if kind == "bool":
+            return _BOOL[text.lower()]
+        if kind == "null":
+            return None
+        if kind in ("merge", "value", "timestamp") \
+                or (kind == "float" and ":" in text) \
+                or (kind == "int" and "0b" in text):
+            raise _YamlError(lineno, f"{kind} scalar {text!r} is not "
+                             "supported")
+        v = text.replace("_", "")
+        sign = -1 if v[:1] == "-" else 1
+        if v[:1] in "+-":
+            v = v[1:]
+        if kind == "float":
+            low = v.lower()
+            if low == ".inf":
+                return sign * math.inf
+            if low == ".nan":
+                return math.nan
+            return sign * float(v)
+        if v == "0":
+            return 0
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if v[0] == "0":
+            return sign * int(v, 8)
+        if ":" in v:    # base 60
+            return sign * sum(int(part) * 60 ** i for i, part
+                              in enumerate(reversed(v.split(":"))))
+        return sign * int(v)
+    return text
+
+
+def _quoted(text: str, i: int, lineno: int):
+    """The quoted scalar that starts at text[i]: (value, index past it)."""
+    q, out, j = text[i], [], i + 1
+    while j < len(text):
+        c = text[j]
+        if q == "'":
+            if c == "'":
+                if text[j + 1:j + 2] == "'":
+                    out.append("'")
+                    j += 2
+                    continue
+                return "".join(out), j + 1
+        elif c == '"':
+            return "".join(out), j + 1
+        elif c == "\\":
+            e = text[j + 1:j + 2]
+            if e not in ('"', "\\"):
+                raise _YamlError(lineno, f"escape \\{e} in a double-quoted "
+                                 "scalar is not supported")
+            out.append(e)
+            j += 2
+            continue
+        out.append(c)
+        j += 1
+    raise _YamlError(lineno, "a quoted scalar must end on its line")
+
+
+_INDICATORS = {"&": "anchors", "*": "aliases", "!": "tags",
+               "|": "block scalars", ">": "block scalars",
+               "{": "flow mappings", "%": "directives",
+               "@": "reserved indicators", "`": "reserved indicators"}
+
+
+def _refuse_indicator(text: str, lineno: int) -> None:
+    c = text[:1]
+    if c in _INDICATORS:
+        raise _YamlError(lineno, f"{_INDICATORS[c]} are not supported")
+    if c == "?" and text[1:2] in ("", " "):
+        raise _YamlError(lineno, "complex keys are not supported")
+
+
+def _flow_sequence(text: str, i: int, lineno: int):
+    """The flow sequence that starts at text[i] == '[': (list, index past
+    its ']')."""
+    items, j, expect_item = [], i + 1, True
+    while True:
+        while j < len(text) and text[j] == " ":
+            j += 1
+        if j >= len(text):
+            raise _YamlError(lineno, "a flow sequence must end on its line")
+        c = text[j]
+        if c == "]":
+            return items, j + 1
+        if c == ",":
+            if expect_item:
+                raise _YamlError(lineno, "empty entry in a flow sequence")
+            expect_item = True
+            j += 1
+            continue
+        if not expect_item:
+            raise _YamlError(lineno, "',' expected in a flow sequence")
+        if c == "[":
+            value, j = _flow_sequence(text, j, lineno)
+        elif c in "'\"":
+            value, j = _quoted(text, j, lineno)
+        else:
+            _refuse_indicator(text[j:], lineno)
+            m = re.compile(r"[^,\[\]{}]*").match(text, j)
+            raw = m.group(0).rstrip()
+            if ": " in raw or raw.endswith(":"):
+                raise _YamlError(lineno, "flow mappings are not supported")
+            value, j = _resolve(raw, lineno), j + len(raw)
+        items.append(value)
+        expect_item = False
+
+
+def _inline(text: str, lineno: int):
+    """A value written on the line of its key or '-': a scalar or a flow
+    sequence."""
+    _refuse_indicator(text, lineno)
+    if text[0] == "[":
+        value, end = _flow_sequence(text, 0, lineno)
+    elif text[0] in "'\"":
+        value, end = _quoted(text, 0, lineno)
+    else:
+        if ": " in text or text.endswith(":"):
+            raise _YamlError(lineno, "a mapping value is not allowed here")
+        if text[:2] == "- " or text == "-":
+            raise _YamlError(lineno, "a sequence is not allowed here")
+        return _resolve(text, lineno)
+    if text[end:].strip():
+        raise _YamlError(lineno, f"unexpected text after the value: "
+                         f"{text[end:].strip()!r}")
+    return value
+
+
+def _strip_comment(line: str) -> str:
+    """The line without its comment: '#' at its start or after a blank,
+    outside quotes."""
+    quote = None
+    for j, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"" and (j == 0 or line[j - 1] in " [,:-"):
+            quote = c
+        elif c == "#" and (j == 0 or line[j - 1] in " \t"):
+            return line[:j]
+    return line
+
+
+def _split_key(text: str, lineno: int):
+    """(key, rest) of a mapping entry 'key: rest', or None if the text is
+    not one."""
+    if text[0] in "'\"":
+        key, j = _quoted(text, 0, lineno)
+        rest = text[j:]
+        if not rest.startswith(":") or rest[1:2] not in ("", " "):
+            return None
+        return key, rest[1:].strip()
+    m = re.search(r":(?: |$)", text)
+    if m is None:
+        return None
+    raw = text[:m.start()].rstrip()
+    _refuse_indicator(raw, lineno)
+    if raw[:1] in "[":
+        raise _YamlError(lineno, "flow collections as keys are not "
+                         "supported")
+    return _resolve(raw, lineno), text[m.end():].strip()
+
+
+def _is_seq_entry(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def load_yaml(text: str):
+    """The document of a config file, as `yaml.safe_load` reads it, for the
+    subset described above."""
+    lines = []   # (line number, indentation, content)
+    for lineno, line in enumerate(text.splitlines(), 1):
+        body = _strip_comment(line).rstrip()
+        if not body.strip():
+            continue
+        content = body.lstrip(" ")
+        if content[0] == "\t":
+            raise _YamlError(lineno, "tabs may not indent")
+        indent = len(body) - len(content)
+        if indent == 0 and content in ("---", "...") or \
+                content.startswith("--- "):
+            if lines or content != "---":
+                raise _YamlError(lineno, "only one document is supported")
+            continue
+        lines.append((lineno, indent, content))
+    if not lines:
+        return None
+    pos = 0
+
+    def block(indent: int):
+        nonlocal pos
+        lineno, ind, content = lines[pos]
+        _refuse_indicator(content, lineno)
+        if _is_seq_entry(content):
+            return sequence(ind)
+        if _split_key(content, lineno) is not None:
+            return mapping(ind)
+        pos += 1
+        if pos < len(lines):
+            raise _YamlError(lines[pos][0], "a scalar must stand alone on "
+                             "one line")
+        return _inline(content, lineno)
+
+    def nested(parent: int, lineno: int, allow_seq_at_parent: bool):
+        """The value of an entry whose line ends after its key or '-'."""
+        if pos >= len(lines):
+            return None
+        _, ind, content = lines[pos]
+        if ind > parent:
+            return block(ind)
+        if ind == parent and allow_seq_at_parent and _is_seq_entry(content):
+            return sequence(ind)
+        return None
+
+    def mapping(indent: int):
+        nonlocal pos
+        out = {}
+        while pos < len(lines) and lines[pos][1] >= indent:
+            lineno, ind, content = lines[pos]
+            if ind != indent:
+                raise _YamlError(lineno, "bad indentation")
+            kv = _split_key(content, lineno)
+            if kv is None:
+                raise _YamlError(lineno, f"expected 'key: value', got "
+                                 f"{content!r}")
+            key, rest = kv
+            pos += 1
+            out[key] = (_inline(rest, lineno) if rest
+                        else nested(indent, lineno, True))
+        return out
+
+    def sequence(indent: int):
+        nonlocal pos
+        out = []
+        while pos < len(lines) and lines[pos][1] >= indent:
+            lineno, ind, content = lines[pos]
+            if ind != indent or not _is_seq_entry(content):
+                raise _YamlError(lineno, "bad indentation or a sequence "
+                                 "entry expected")
+            rest = content[1:].strip()
+            pos += 1
+            if not rest:
+                out.append(nested(indent, lineno, False))
+            elif _is_seq_entry(rest) or _split_key(rest, lineno):
+                raise _YamlError(lineno, "a collection on the line of its "
+                                 "'-' is not supported")
+            else:
+                out.append(_inline(rest, lineno))
+        return out
+
+    doc = block(lines[0][1])
+    if pos < len(lines):
+        raise _YamlError(lines[pos][0], "bad indentation")
+    return doc

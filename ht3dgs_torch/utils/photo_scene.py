@@ -11,8 +11,8 @@ zero pose/depth noise.
 The dataset is written in the NeRF-synthetic layout (transforms_train.json
 + PNGs + depth dir) that data.readers.read_blender reads, so the full
 pipeline (train / eval_pose / eval_nvs) runs on it unchanged. matplotlib
-and PIL are imported only to read the photograph; the PNGs are written by
-utils.image.write_png.
+is imported only to find the photograph, which `data.imgcodec` decodes; the
+PNGs are written by utils.image.write_png.
 """
 
 from __future__ import annotations
@@ -28,12 +28,12 @@ import numpy as np
 def _load_photo() -> np.ndarray:
     """A real photograph, [H, W, 3] float32 in [0,1]."""
     import matplotlib
-    from PIL import Image
+
+    from ..data import imgcodec
 
     path = os.path.join(matplotlib.get_data_path(), "sample_data",
                         "grace_hopper.jpg")
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+    return imgcodec.load_rgb8(path).astype(np.float32) / 255.0
 
 
 @dataclass

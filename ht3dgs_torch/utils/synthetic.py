@@ -2,7 +2,9 @@
 
 Counterpart of `ht3dgs.utils.synthetic`: the same random Gaussian scene,
 camera orbit and expected depths, with the frames rendered by the port's
-oracle renderer. `write_images_only` writes them as an images_only dataset.
+oracle renderer. `write_images_only` writes them as an images_only dataset
+(PNGs by `utils.image.write_png`: other bytes than Pillow's, the same
+pixels).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..core import gaussians as G
 from ..core.camera import intrinsics_from_fov, make_camera
+from .image import write_png
 
 
 @dataclass
@@ -98,12 +101,10 @@ def generate(n_frames=12, height=48, width=64, n_gaussians=400,
 
 def write_images_only(scene: SyntheticScene, out_dir: str,
                       depth_dir: str = None) -> str:
-    from PIL import Image
-
     os.makedirs(out_dir, exist_ok=True)
     for i, f in enumerate(scene.frames):
-        Image.fromarray((f * 255).astype(np.uint8)).save(
-            os.path.join(out_dir, f"{i:04d}.png"))
+        write_png(os.path.join(out_dir, f"{i:04d}.png"),
+                  (f * 255).astype(np.uint8))
     if depth_dir is not None and scene.depths is not None:
         os.makedirs(depth_dir, exist_ok=True)
         for i, d in enumerate(scene.depths):
