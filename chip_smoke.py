@@ -89,7 +89,8 @@ Phases (any failure exits non-zero):
    to the SHA-256 of Pillow's arrays in its manifest, the 1080p frame's
    LANCZOS 1600x900 resize included; (b) the host time of a 1080p JPEG
    and PNG decode and of that resize (median of 10); (c) phase 8's tier
-   and cuts written as 16 PNG frames with .npy depths, a
+   and cuts, at a smaller training depth (FILES_CUTS), written as 16 PNG
+   frames with .npy depths, a
    transforms_train.json of the true poses and a cfg.yml, then
    `run.main(["--mode", "train", "--config", cfg.yml])`, eval_pose and
    eval_nvs in-process and eval_pose once more as `python -m
@@ -97,7 +98,17 @@ Phases (any failure exits non-zero):
    above 18 dB), K1 and K2 launched, pose_eval.txt and test/test.txt
    written; it prints one `files` line. It runs right after phase 8, so
    that the two trainings of the tier are timed in the same state of the
-   process and the host.
+   process and the host;
+14. the paper's hierarchy depth from files ("scale"): the photo scene at
+   the scale tier's size (48 frames at 208x160, exact depths) with the
+   tier's recipe (train_level 2, partition v1; budgets cut, SCALE_CUTS)
+   as a cfg.yml, trained by `run.main(["--mode", "train", "--config",
+   cfg.yml])`: 4 leaves, 2 merged level-1 non-leaves, the root, MSS phase
+   1 at both non-leaf levels. Checks: PSNR above 18 dB, rotations within
+   3 degrees, the root covering frames 0-47, 3 merges and 3 MSS phase 1
+   runs, K1 and K2 once per step in every trainer phase; it prints the
+   partition, each bundle's live rows, capacity and M, the per-phase
+   table with drops, the peak memory and the host share of a root step.
 It prints the card's name and power limit, one JSON line of kernel numbers,
 and last the line {"ok": true, "device": {...}}.
 """
@@ -116,7 +127,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 
 import numpy as np
 
@@ -722,64 +732,6 @@ def tier_configs(depth_dir: str):
     return model, pipe, optim
 
 
-class StepCounter:
-    """Counts training steps (a batched step once), the model-steps in
-    them and kernel launches per trainer phase: wraps the step functions
-    the trainer calls and the trainer's PhaseTimer."""
-
-    def __init__(self, B, timer):
-        import collections
-
-        self.B, self.timer = B, timer
-        self.current = None
-        self.steps = collections.Counter()
-        self.model_steps = collections.Counter()
-        self.launches = collections.defaultdict(collections.Counter)
-        phase = timer.phase
-
-        @contextlib.contextmanager
-        def counted(name):
-            k0 = self._counts()
-            self.current = name
-            try:
-                with phase(name):
-                    yield
-            finally:
-                self.current = None
-                for k, v in self._counts().items():
-                    self.launches[name][k] += v - k0[k]
-
-        timer.phase = counted
-
-    def _counts(self):
-        return {"blend_fwd": self.B.blend_fwd.launches,
-                "blend_bwd": self.B.blend_bwd.launches}
-
-    def wrap(self, module, name: str, models=lambda a: 1):
-        """models(args): the models one call steps."""
-        fn = getattr(module, name)
-
-        def counted(*a, **kw):
-            self.steps[self.current] += 1
-            self.model_steps[self.current] += models(a)
-            return fn(*a, **kw)
-
-        setattr(module, name, counted)
-        return fn
-
-    def wrap_steps(self):
-        """Wrap the step functions the trainer calls: Phase A's batched
-        steps (models: the targets' or tangents' leading axis) and
-        gaussian_train_step. Returns [(module, name, original)]."""
-        from ht3dgs_torch.train import phase_a
-        from ht3dgs_torch.train import step as step_lib
-
-        return [(m, n, self.wrap(m, n, size)) for m, n, size in (
-            (phase_a, "fit_step", lambda a: a[3].shape[0]),
-            (phase_a, "pose_step", lambda a: a[1].shape[0]),
-            (step_lib, "gaussian_train_step", lambda a: 1))]
-
-
 def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
     """The full tier's trainer on its synthetic scene, frames in memory,
     depths as .npy under depth/ of the working directory (written when
@@ -821,15 +773,12 @@ def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
 
 def rotation_errors(tr, scene) -> list:
     """Degrees between each relative pose and the truth."""
-    gt = scene.poses_w2c
-    rot_err = []
+    from ht3dgs_torch import real_image_bench
+
     for f in range(1, TIER_FRAMES):
-        rel = tr.pose_dict[f"rel_pose_{f - 1}_to_{f}"]
-        check(np.all(np.isfinite(rel)), f"rel_pose_{f - 1}_to_{f} finite")
-        dR = rel[:3, :3] @ (gt[f] @ np.linalg.inv(gt[f - 1]))[:3, :3].T
-        rot_err.append(float(np.degrees(np.arccos(np.clip(
-            (np.trace(dR) - 1) / 2, -1.0, 1.0)))))
-    return rot_err
+        check(np.all(np.isfinite(tr.pose_dict[f"rel_pose_{f - 1}_to_{f}"])),
+              f"rel_pose_{f - 1}_to_{f} finite")
+    return real_image_bench.rotation_errors(tr.pose_dict, scene.poses_w2c)
 
 
 def phase_hierarchy(B, device, seed: int, workdir: str):
@@ -841,6 +790,7 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
 
     from ht3dgs_torch.eval import pose_eval
     from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.utils.profiling import StepCounter, host_share
 
     t0 = time.perf_counter()
     cwd = os.getcwd()
@@ -849,7 +799,7 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
         tr, scene = tier_trainer(device, seed)
         print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
               f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
-        counter = StepCounter(B, tr.timer)
+        counter = StepCounter(tr.timer)
         originals = counter.wrap_steps()
         try:
             B.blend_fwd.launches = 0
@@ -1046,6 +996,7 @@ def phase_eval(B, device, ctx):
     from ht3dgs_torch.data import ply
     from ht3dgs_torch.train import phase_a
     from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.utils.profiling import host_share
 
     tr, bundle, scene, ev8, psnr8 = ctx
     ckpt = os.path.join(tr.result_path, "chkpnt", "model.npz")
@@ -1627,13 +1578,14 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
     from ht3dgs_torch.parallel import mesh as mesh_lib
     from ht3dgs_torch.raster import blend as B
     from ht3dgs_torch.train import hierarchy, parallel_nonleaf
+    from ht3dgs_torch.utils.profiling import StepCounter, host_share
 
     os.environ.update(CUBLAS_DETERMINISTIC)
     device = mesh_lib.rank_device("cuda")
     timer = CommTimer()
     os.chdir(rank_dir(workdir, "a", rank))
     tr, scene = tier_trainer(device, seed, mesh=(2, 2))
-    counter = StepCounter(B, tr.timer)
+    counter = StepCounter(tr.timer)
     sections = [0]
 
     def counted_share(fn):
@@ -1926,31 +1878,6 @@ def check_resume(res, resumed, pg_timeout: float, total_c: float) -> None:
           "poses, generator state)")
 
 
-def host_share(fn, reps: int = 20, profiled: int = 5):
-    """(median wall ms of fn() with a synchronise, device busy ms per call
-    under torch.profiler: the sum of its kernel times)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return statistics.median(times), busy_us / 1e3 / profiled
-
-
 # phase 12: the batch axis at the operating point
 BATCH = 4
 
@@ -2013,6 +1940,7 @@ def phase_batch(B, state, cam, target, device, seed) -> dict:
     from ht3dgs_torch.raster.tiled import build_tile_lists
     from ht3dgs_torch.train import phase_a
     from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.utils.profiling import host_share
 
     models = [perturbed(state, seed + b, device) for b in range(BATCH)]
     stacked = phase_a.stack_states(models)
@@ -2200,20 +2128,13 @@ def yaml_value(v) -> str:
     return str(v)
 
 
-def files_config(path: str, img_dir: str, depth_dir: str) -> None:
-    """cfg.yml: phase 8's recipe and cuts (tier_configs) as the fields that
-    differ from the defaults, the frame folder for training and the same
-    folder's transforms_train.json (true poses) for the eval modes. Loading
-    it must give tier_configs' fields back."""
+def write_config(path: str, want, comment: str, what: str) -> None:
+    """cfg.yml: the fields of `want` (model, pipe, optim) that differ from
+    the defaults, as the YAML subset writes them. Loading it must give
+    want's fields back."""
     from ht3dgs_torch.utils.config import load_configs
 
-    want = tier_configs(depth_dir)
-    want[0].seq_name = "files"
-    want[0].FovX = 1.2
-    want[0].data_path_train = want[0].data_path_eval = img_dir
-    want[0].data_type_train, want[0].data_type_eval = "images_only", "blender"
-    want[2].eval_nvs_epochs = EVAL_NVS_EPOCHS
-    lines = ["# the full tier from files on disk (chip_smoke.py phase 13)"]
+    lines = [comment]
     for section, cfg, default in zip(
             ("ModelParams", "PipelineParams", "OptimizationParams"), want,
             load_configs()):
@@ -2226,8 +2147,35 @@ def files_config(path: str, img_dir: str, depth_dir: str) -> None:
         f.write("\n".join(lines) + "\n")
     for got, ref in zip(load_configs(path), want):
         check(dataclasses.asdict(got) == dataclasses.asdict(ref),
-              f"13: cfg.yml reads back as written "
+              f"{what}: cfg.yml reads back as written "
               f"({dataclasses.asdict(got)} != {dataclasses.asdict(ref)})")
+
+
+# Phase 13 trains phase 8's tier from files at a smaller depth than phase 8
+# (phase 14 drives the same entry point at the scale tier's full depth):
+# Phase A's fits 400 -> 200 and pose fits 150 -> 75 iterations, the leaf
+# init 400 -> 200, steps per leaf frame 50 -> 25, and the root's MSS phase
+# 1 and 2 from 10 and 25 to 5 and 10 per frame.
+FILES_CUTS = dict(phase_a_fit_iters=200, phase_a_pose_iters=75,
+                  leaf_init_iters=200, single_step=25,
+                  mss_phase1_iteration_per_frame=5,
+                  num_iterations_per_frame_each_level=[10, 10, 10])
+
+
+def files_config(path: str, img_dir: str, depth_dir: str) -> None:
+    """cfg.yml: phase 8's recipe and cuts (tier_configs) at phase 13's
+    depth (FILES_CUTS), the frame folder for training and the same
+    folder's transforms_train.json (true poses) for the eval modes."""
+    want = tier_configs(depth_dir)
+    want[0].seq_name = "files"
+    want[0].FovX = 1.2
+    want[0].data_path_train = want[0].data_path_eval = img_dir
+    want[0].data_type_train, want[0].data_type_eval = "images_only", "blender"
+    want[2].eval_nvs_epochs = EVAL_NVS_EPOCHS
+    for k, v in FILES_CUTS.items():
+        setattr(want[2], k, v)
+    write_config(path, want, "# the full tier from files on disk "
+                 "(chip_smoke.py phase 13)", "13")
 
 
 def phase_files(B, device, seed: int, workdir: str) -> dict:
@@ -2242,6 +2190,7 @@ def phase_files(B, device, seed: int, workdir: str) -> dict:
     from ht3dgs_torch.train import hierarchy
     from ht3dgs_torch.utils import synthetic
     from ht3dgs_torch.utils.image import write_png
+    from ht3dgs_torch.utils.profiling import StepCounter
 
     # (a) the fixtures against Pillow's arrays
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
@@ -2310,8 +2259,7 @@ def phase_files(B, device, seed: int, workdir: str) -> dict:
 
         hierarchy.HTGaussianTrainer.evaluate_on_training_images = recorded
         readers.FrameInfo.load_image = timed_load
-        counter = StepCounter(B, types.SimpleNamespace(
-            phase=lambda name: contextlib.nullcontext()))
+        counter = StepCounter()
         originals = counter.wrap_steps()
         B.blend_fwd.launches = 0
         B.blend_bwd.launches = 0
@@ -2393,6 +2341,161 @@ def phase_files(B, device, seed: int, workdir: str) -> dict:
         "train_view_psnr": psnr, "max_rot_err_deg": max(rot_err),
         "pose_eval": pose_line, "eval_nvs": nvs_line,
         "launches": launches}))
+    return launches
+
+
+# phase 14: the scale tier at train_level 2 from files. The hierarchy's
+# shape is the tier's (48 frames, 4 leaves, 2 level-1 non-leaves, MSS phase
+# 1 at both non-leaf levels, 3 merges); only budgets are cut, each for the
+# script's time (the uncut recipe is ~40k steps, `python -m
+# ht3dgs_torch.real_image_bench OUT --scale`):
+# - Phase A's fits 300 -> 150 and pose fits 120 -> 60 iterations (12
+#   chunks of 4 pairs: 5,040 -> 2,520 batched steps);
+# - the leaf init 300 -> 150 iterations and the steps per leaf frame
+#   80 -> 40 (as phase 8 halves the full tier's);
+# - MSS phase 2 from 300 to 25 steps per frame at levels 1 and 0 (as phase
+#   8 cuts the root's); MSS phase 1 keeps the tier's 10 per frame.
+SCALE_CUTS = dict(phase_a_fit_iters=150, phase_a_pose_iters=60,
+                  leaf_init_iters=150, single_step=40,
+                  num_iterations_per_frame_each_level=[25, 25, 25])
+
+
+def frame_ranges(lists) -> str:
+    return ", ".join(f"{fr[0]}-{fr[-1]}" for fr in lists)
+
+
+def phase_scale(B, device, seed: int, workdir: str) -> dict:
+    """Phase 14: the photo scene at the scale tier's size (48 frames at
+    208x160, blender layout with exact depths) and the tier's recipe
+    (`utils/tiers.py`, train_level 2, partition v1) with SCALE_CUTS,
+    written as cfg.yml and trained by `run.main(["--mode", "train",
+    "--config", cfg.yml])`. Gates: train-view PSNR above 18 dB, every
+    relative-pose rotation error below 3 degrees, the root covering frames
+    0-47, 4 / 2 / 1 segments, 3 merges and MSS phase 1 three times (both
+    level-1 non-leaves and the root), K1 and K2 launched once per step in
+    every trainer phase that trains. Returns the launches of the run."""
+    import torch
+
+    from ht3dgs_torch import real_image_bench, run
+    from ht3dgs_torch.eval import pose_eval
+    from ht3dgs_torch.train import hierarchy
+    from ht3dgs_torch.train import step as step_lib
+    from ht3dgs_torch.utils import photo_scene
+    from ht3dgs_torch.utils.config import load_configs
+    from ht3dgs_torch.utils.profiling import StepCounter, host_share
+    from ht3dgs_torch.utils.tiers import apply_tier, tier_dims
+
+    h, w, n = tier_dims("scale")
+    data_dir = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    gt, _ = photo_scene.write_dataset(data_dir, n_frames=n, height=h,
+                                      width=w, seed=seed)
+    scene_s = time.perf_counter() - t0
+    want = load_configs()
+    apply_tier("scale", *want, data_dir)
+    want[0].data_path_train = data_dir
+    want[0].data_type_train = "blender"
+    for k, v in SCALE_CUTS.items():
+        setattr(want[2], k, v)
+    check(want[1].train_level == 2 and want[1].partition_strategy == "v1",
+          "14: train_level 2, partition v1")
+    cfg = os.path.join(workdir, "cfg.yml")
+    write_config(cfg, want, "# the scale tier at train_level 2 "
+                 "(chip_smoke.py phase 14)", "14")
+
+    counter = StepCounter()
+    originals = counter.wrap_steps() + counter.watch_trainer(
+        hierarchy.HTGaussianTrainer)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        B.blend_fwd.launches = 0
+        B.blend_bwd.launches = 0
+        t0 = time.perf_counter()
+        run.main(["--mode", "train", "--config", cfg], device=str(device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(B)
+        peak = torch.cuda.max_memory_allocated()
+        StepCounter.restore(originals)
+        originals = []
+        tr = counter.trainer
+        root = tr.gs_bundle
+        psnr = tr.evaluate_on_training_images(save_images=False)
+        # the host share of one root step, at the trainer's tile arguments
+        cam = tr.camera_for(0, pose=root.get_RT(0))
+        gt_img = tr.device_frame("rgb", 0)
+        lrs = tr._lrs(1, root)
+        step_ms, busy_ms = host_share(lambda: step_lib.gaussian_train_step(
+            root.state, root.opt, cam, gt_img, lrs, mode="tiled",
+            tile_args=tr._tile_args))
+    finally:
+        os.chdir(cwd)
+        StepCounter.restore(originals)
+
+    lists = tr.partition(tr.seq_len, 2)
+    table = counter.table(tr.timer)
+    rot = real_image_bench.rotation_errors(tr.pose_dict, gt)
+    ev = pose_eval.evaluate_poses(gt, root.poses[:n])
+    print(f"phase 14: scale tier, {n} frames {w}x{h} written in "
+          f"{scene_s:.1f} s; run.main --mode train {wall:.1f} s; tile args "
+          f"{tr._tile_args}; capacity growths {tr.n_capacity_grows}")
+    for lv in (2, 1, 0):
+        print(f"phase 14: partition level {lv}: {frame_ranges(lists[lv])}")
+    for b in counter.bundles:
+        print(f"phase 14: bundle {b['tag']} frames {b['frames'][0]}-"
+              f"{b['frames'][1]}: {b['live']} live of capacity "
+              f"{b['capacity']}, M {b['M']}")
+    for name in HIER_PHASES:
+        r = table.get(name, {})
+        per = (f"{r['ms_per_step']:.2f} ms per step" if r.get("ms_per_step")
+               else "no steps")
+        print(f"phase 14 [{name}]: {r.get('s', 0.0):.3f} s "
+              f"x{r.get('count', 0)}, {r.get('steps', 0)} steps "
+              f"({r.get('model_steps', 0)} model-steps), {per}, launches "
+              f"{r.get('launches', {})}, drops {r.get('drops', {})}")
+    print(f"phase 14: root gaussian_train_step at {w}x{h}: median "
+          f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}%), host share "
+          f"{100 * (1 - busy_ms / step_ms):.1f}%; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    print(f"phase 14: relative-pose rotation error, degrees: max "
+          f"{max(rot):.4f}, mean {np.mean(rot):.4f}; ATE x100 "
+          f"{100 * ev['ATE']:.4f}, RPE_trans x100 "
+          f"{ev['RPE_trans_x100']:.4f}, RPE_rot {ev['RPE_rot_deg']:.4f} "
+          f"deg; train-view mean PSNR {psnr:.3f} dB")
+    print("scale " + json.dumps({
+        "frames": n, "width": w, "height": h, "train_s": round(wall, 3),
+        "partition": {lv: frame_ranges(lists[lv]) for lv in (2, 1, 0)},
+        "bundles": counter.bundles, "phases": table,
+        "capacity_growths": tr.n_capacity_grows,
+        "tile_args": dict(tr._tile_args or ()),
+        "root_step_ms": step_ms, "root_step_busy_ms": busy_ms,
+        "peak_memory_gib": peak / 2**30, "train_view_psnr": psnr,
+        "max_rot_err_deg": max(rot), "ATE_x100": 100 * ev["ATE"],
+        "RPE_trans_x100": ev["RPE_trans_x100"],
+        "RPE_rot_deg": ev["RPE_rot_deg"], "launches": launches}))
+
+    check(psnr > MIN_PSNR, f"14: train-view mean PSNR > {MIN_PSNR} dB")
+    check(max(rot) < MAX_ROT_DEG,
+          f"14: relative-pose rotation error < {MAX_ROT_DEG} deg")
+    check(root.to_visit_frames == list(range(n)),
+          f"14: the root covers frames 0-{n - 1}")
+    check([len(lists[lv]) for lv in (2, 1, 0)] == [4, 2, 1],
+          "14: 4 leaves, 2 level-1 non-leaves, the root")
+    check(table.get("merge", {}).get("count") == 3, "14: 3 merges")
+    check(table.get("nonleaf_phase1", {}).get("count") == 3,
+          "14: MSS phase 1 at both level-1 non-leaves and the root")
+    for name, r in table.items():
+        for k in ("blend_fwd", "blend_bwd"):
+            check(r["launches"].get(k, 0) >= r["steps"],
+                  f"14 [{name}]: {k} launched once per step")
+    check(all(table[p]["steps"] > 0 for p in (
+        "phase_a", "leaf", "nonleaf_phase1", "nonleaf_phase2")),
+        "14: every training phase took steps")
+    check(all(launches.values()), "14: K1 and K2 launched")
     return launches
 
 
@@ -2494,6 +2597,10 @@ def main() -> None:
     # 12. the batch axis at the operating point
     batch_launches = phase_batch(B, state, cam, trained[2], device,
                                  args.seed)
+    # 14. the scale tier at train_level 2, from files through run.main
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as scale_dir:
+        scale_launches = phase_scale(B, device, args.seed, scale_dir)
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
                    "hierarchy": hier_launches[rec["name"]],
@@ -2501,7 +2608,8 @@ def main() -> None:
                    "mesh": nccl_launches[rec["name"]]
                    + mesh_launches[rec["name"]],
                    "batch": batch_launches[rec["name"]],
-                   "files": files_launches[rec["name"]]}
+                   "files": files_launches[rec["name"]],
+                   "scale": scale_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:

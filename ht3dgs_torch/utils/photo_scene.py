@@ -2,17 +2,22 @@
 
 Counterpart of `ht3dgs.utils.photo_scene` (numpy): a multi-plane 3D scene
 (fronto-parallel textured planes at different depths, textured with the
-sample photograph matplotlib ships, grace_hopper.jpg) imaged by a moving
-pinhole camera with exact geometry. Each frame is a perspective
+sample photograph grace_hopper.jpg) imaged by a moving pinhole camera
+with exact geometry. Each frame is a perspective
 re-projection of the photo planes, composited near-to-far, with exact
 ground-truth poses and depth maps: real image statistics, real parallax,
 zero pose/depth noise.
 
 The dataset is written in the NeRF-synthetic layout (transforms_train.json
 + PNGs + depth dir) that data.readers.read_blender reads, so the full
-pipeline (train / eval_pose / eval_nvs) runs on it unchanged. matplotlib
-is imported only to find the photograph, which `data.imgcodec` decodes; the
-PNGs are written by utils.image.write_png.
+pipeline (train / eval_pose / eval_nvs) runs on it unchanged.
+
+The photograph is a byte-for-byte copy of matplotlib's sample data
+(`mpl-data/sample_data/grace_hopper.jpg`, 61,306 bytes, SHA-256
+a8ca6d734765703b09728ab47fe59f473d93ae3967fc24c7c0288c3c7adb7130), a U.S.
+Navy portrait of Grace Hopper in the public domain. It ships in `assets/`
+of this package and is decoded by `data.imgcodec`, so building the scene
+needs no matplotlib; the PNGs are written by utils.image.write_png.
 """
 
 from __future__ import annotations
@@ -25,15 +30,15 @@ from typing import List, Tuple
 import numpy as np
 
 
+PHOTO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                     "grace_hopper.jpg")
+
+
 def _load_photo() -> np.ndarray:
     """A real photograph, [H, W, 3] float32 in [0,1]."""
-    import matplotlib
-
     from ..data import imgcodec
 
-    path = os.path.join(matplotlib.get_data_path(), "sample_data",
-                        "grace_hopper.jpg")
-    return imgcodec.load_rgb8(path).astype(np.float32) / 255.0
+    return imgcodec.load_rgb8(PHOTO).astype(np.float32) / 255.0
 
 
 @dataclass
