@@ -40,7 +40,9 @@ Phases (any failure exits non-zero):
    the truth, the root covering every frame, train-view PSNR above 18 dB,
    model.npz reloading to a bit-equal render, each kernel launched at
    least once per step in every trainer phase, and in Phase A K2 once per
-   batched step; it prints steps and model-steps per trainer phase;
+   batched step; it prints steps and model-steps per trainer phase, and
+   the root's step timed at the last training step's tile arguments and at
+   the eval sweep's, which grows K after training;
 9. the eval path on phase 8's root, with every launch count at 0 first:
    eval_pose (ATE/RPE equal to phase 8's to 1e-6), eval_nvs (16 frames x
    50 test-time pose steps as 50 batched steps of one shared model under
@@ -108,9 +110,19 @@ Phases (any failure exits non-zero):
    3 degrees, the root covering frames 0-47, 3 merges and 3 MSS phase 1
    runs, K1 and K2 once per step in every trainer phase; it prints the
    partition, each bundle's live rows, capacity and M, the per-phase
-   table with drops, the peak memory and the host share of a root step.
-It prints the card's name and power limit, one JSON line of kernel numbers,
-and last the line {"ok": true, "device": {...}}.
+   table with drops and tile arguments, and the peak memory. Then the
+   root's step at the last training step's tile arguments (checked to be
+   its K) and at the eval sweep's, each timed with its host share; the
+   first under torch.profiler: device ms by kernel (top 12) and by layer
+   (projection + SH, binning, K1, K2, assemble, loss, Adam, densify
+   stats), and the binning's filled slots against M with the kept entries
+   and the drops at K; and K1 and K2 at the root's training shape (frame
+   0's entry lists, T = 130 tiles, K = 4096) against their plain versions
+   under phases 3-4's tolerances, timed, with their bound and instruction
+   floor, and Phase A's shape (B x T tiles).
+It prints the card's name and power limit, one JSON line of kernel numbers
+(each kernel's 1080p figures, and under "scale_root" phase 14's), and
+last the line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -203,26 +215,12 @@ def make_scene(seed: int, device):
         active_sh_degree=torch.tensor(3, dtype=torch.int32, device=device))
 
 
-def kernel_entries(state, cam):
-    """Packed entries and meta the main path hands the blend."""
+def phase_fwd(B, ent, meta, P, what: str = "K1", plain_reps: int = 3):
+    """K1 vs its plain version, both timed (the plain one over plain_reps
+    calls): returns (record, ncon, t_fin, blend_work's counts)."""
     import torch
 
-    from ht3dgs_torch.raster.projection import project
-    from ht3dgs_torch.raster.tiled import build_tile_lists
-
-    with torch.no_grad():
-        proj = project(state.means, state.scales(), state.quats,
-                       state.opacities(), state.sh(), state.live, cam,
-                       state.active_sh_degree, state.max_sh_degree)
-        ent, meta, total, nd_m, nd_tile, _ = build_tile_lists(
-            proj, cam.height, cam.width, **TILE_ARGS)
-    return ent, meta, int(total), int(nd_m), int(nd_tile)
-
-
-def phase_fwd(B, ent, meta, P):
-    """K1 vs its plain version: returns (record, ncon, t_fin, number of
-    entry-pixel evaluations)."""
-    import torch
+    from ht3dgs_torch.utils.profiling import blend_work
 
     k = B.blend_fwd(ent, meta, 16, 16)
     p = B.blend_fwd_plain(ent, meta, 16, 16)
@@ -232,30 +230,35 @@ def phase_fwd(B, ent, meta, P):
     count = meta[:, :1].float()
     ncon_equal = torch.equal(torch.minimum(k[3], count),
                              torch.minimum(p[3], count))
-    print(f"K1 vs plain: max|d| {errs}, min(ncon,count) equal: {ncon_equal}")
-    check(errs["rgb"] <= 3e-5 and errs["t_fin"] <= 3e-5, "K1 image 3e-5")
-    check(errs["depth"] <= 3e-4, "K1 depth 3e-4")
-    check(ncon_equal, "K1 min(ncon, count) equal to the plain version's")
+    print(f"{what} vs plain: max|d| {errs}, min(ncon,count) equal: "
+          f"{ncon_equal}")
+    check(errs["rgb"] <= 3e-5 and errs["t_fin"] <= 3e-5, f"{what} image 3e-5")
+    check(errs["depth"] <= 3e-4, f"{what} depth 3e-4")
+    check(ncon_equal, f"{what} min(ncon, count) equal to the plain version's")
 
     ms = cuda_ms(lambda: B.blend_fwd(ent, meta, 16, 16), 20)
-    plain_ms = cuda_ms(lambda: B.blend_fwd_plain(ent, meta, 16, 16), 3)
-    cnt = meta[:, 0].long().clamp(max=ent.shape[1])
-    ncon = k[3]
-    n_eval = torch.minimum(cnt[:, None].float(), ncon + 1).sum().item()
-    T = ent.shape[0]
-    nbytes = cnt.sum().item() * 64 + T * 16 + T * P * 6 * 4
+    plain_ms = cuda_ms(lambda: B.blend_fwd_plain(ent, meta, 16, 16),
+                       plain_reps)
+    work = blend_work(ent, meta, k[3], P)
     rec = dict(name="blend_fwd", route="cuda",
                source="ht3dgs_torch/csrc/blend_fwd.cu",
                replaces="ht3dgs/raster/pallas_blend.py:167",
                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-               **bound(nbytes, n_eval * OPS_FWD), library_ms=None)
-    print(f"K1: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
-          f"{n_eval:.0f} entry-pixel evaluations, {nbytes / 1e6:.1f} MB")
-    return rec, ncon, k[1], n_eval
+               **bound(work["fwd_bytes"], work["n_eval"] * OPS_FWD),
+               library_ms=None)
+    print(f"{what}: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
+          f"{work['n_eval']:.0f} entry-pixel evaluations, "
+          f"{work['fwd_bytes'] / 1e6:.1f} MB")
+    return rec, k[3], k[1], work
 
 
-def phase_bwd(B, ent, meta, t_fin, ncon, P, seed):
+def phase_bwd(B, ent, meta, t_fin, ncon, P, seed, what: str = "K2",
+              plain_reps: int = 3):
+    """K2 vs its plain version on seeded random cotangents, per column and
+    per entry (bwd_scale), both timed: returns the record."""
     import torch
+
+    from ht3dgs_torch.utils.profiling import blend_work
 
     T, K, _ = ent.shape
     g = torch.Generator(device=ent.device).manual_seed(seed)
@@ -264,28 +267,37 @@ def phase_bwd(B, ent, meta, t_fin, ncon, P, seed):
     k = B.blend_bwd(ent, meta, t_fin, ncon, *cts, 16, 16)
     p = B.blend_bwd_plain(ent, meta, t_fin, ncon, *cts, 16, 16)
     scale = bwd_scale(B, ent, meta, t_fin, ncon, *cts, 16, 16)
-    check_bwd(k, p, scale, meta, "K2")
-    count = meta[:, :1].long()
+    check_bwd(k, p, scale, meta, what)
     err = (k - p).abs()
+    del p, scale
 
     ms = cuda_ms(lambda: B.blend_bwd(ent, meta, t_fin, ncon, *cts, 16, 16),
                  20)
     plain_ms = cuda_ms(
-        lambda: B.blend_bwd_plain(ent, meta, t_fin, ncon, *cts, 16, 16), 3)
-    last = torch.minimum(ncon.amax(dim=1), count[:, 0].float())
-    n_kept = ncon.sum().item()
-    n_slot = last.sum().item() * P
-    nbytes = last.sum().item() * 64 + T * 16 + T * P * 7 * 4 + T * K * 64
+        lambda: B.blend_bwd_plain(ent, meta, t_fin, ncon, *cts, 16, 16),
+        plain_reps)
+    work = blend_work(ent, meta, ncon, P)
     rec = dict(name="blend_bwd", route="cuda",
                source="ht3dgs_torch/csrc/blend_bwd.cu",
                replaces="ht3dgs/raster/pallas_blend.py:291",
                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-               **bound(nbytes, n_kept * OPS_BWD_KEPT
-                       + n_slot * OPS_BWD_SLOT), library_ms=None)
-    print(f"K2: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
-          f"{n_kept:.0f} kept entry-pixels, {n_slot:.0f} entry-pixel slots, "
-          f"{nbytes / 1e6:.1f} MB")
-    return rec, n_kept, n_slot
+               **bound(work["bwd_bytes"], work["n_kept"] * OPS_BWD_KEPT
+                       + work["n_slot"] * OPS_BWD_SLOT), library_ms=None)
+    print(f"{what}: {ms:.4f} ms/call, plain {plain_ms:.3f} ms, "
+          f"{work['n_kept']:.0f} kept entry-pixels, {work['n_slot']:.0f} "
+          f"entry-pixel slots, {work['bwd_bytes'] / 1e6:.1f} MB")
+    return rec
+
+
+def floors(work: dict, per_eval: dict, clock_mhz: float, n_sm: int) -> dict:
+    """Each blend kernel's instruction floor for blend_work's counts."""
+    return {
+        "blend_fwd": instr_floor_ms(
+            work["n_eval"] * per_eval["blend_fwd_kernel"], clock_mhz, n_sm),
+        "blend_bwd": instr_floor_ms(
+            work["n_kept"] * per_eval["blend_bwd_kernel"]
+            + work["n_slot"] * per_eval["blend_bwd_kernel/slot"], clock_mhz,
+            n_sm)}
 
 
 def bwd_scale(B, ent, meta, t_fin, ncon, d_rgb, d_t, d_depth, tile_h: int,
@@ -608,44 +620,6 @@ def main_path(state, cam, device, seed):
             (pert, opt, target))
 
 
-def profile_step(state, opt, cam, target, path, step_ms):
-    """One gaussian_train_step under torch.profiler: device time by kernel
-    written to `path`; printed: the kernels' total time, as a share of the
-    profiled step and of the unprofiled median step `step_ms`."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from ht3dgs_torch.train import step
-
-    def one():
-        step.gaussian_train_step(state, opt, cam, target, LRS, mode="tiled",
-                                 tile_args=TILE_ARGS)
-        torch.cuda.synchronize()
-
-    one()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    avgs = prof.key_averages()
-    # device-side rows only (kernels, copies): the operator rows repeat
-    # their kernels' time
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    with open(path, "w") as f:
-        f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    print(f"profile: device busy {busy_us / 1e3:.3f} ms = "
-          f"{100 * busy_us / wall_us:.1f}% of the profiled step "
-          f"({wall_us / 1e3:.2f} ms), {100 * busy_us / 1e3 / step_ms:.1f}% "
-          f"of the median step ({step_ms:.2f} ms); table in {path}")
-    for e in top:
-        print(f"profile: {e.self_device_time_total / 1e3:8.3f} ms "
-              f"x{e.count:<4d} {e.key[:90]}")
-
-
 def small_reference(device, seed):
     """Tiled render (kernels) vs the oracle render on a small scene."""
     import torch
@@ -789,8 +763,7 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
     import torch
 
     from ht3dgs_torch.eval import pose_eval
-    from ht3dgs_torch.train import step as step_lib
-    from ht3dgs_torch.utils.profiling import StepCounter, host_share
+    from ht3dgs_torch.utils.profiling import StepCounter, root_step_figures
 
     t0 = time.perf_counter()
     cwd = os.getcwd()
@@ -858,17 +831,9 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
     check(sum(counter.steps.values()) > 0 and all(launches.values()),
           "phase 8 ran steps and both kernels")
 
-    # host share of a step at this size: the root's step, timed alone
-    lrs = tr._lrs(1, bundle)
-    cam, gt_img = tr.camera_for(0, pose=bundle.get_RT(0)), \
-        tr.device_frame("rgb", 0)
-    step_ms, busy_ms = host_share(lambda: step_lib.gaussian_train_step(
-        bundle.state, bundle.opt, cam, gt_img, lrs, mode="tiled",
-        tile_args=tr._tile_args))
-    print(f"phase 8: root gaussian_train_step at {TIER_W}x{TIER_H}: median "
-          f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / step_ms:.1f}%), host share "
-          f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    # host share of a step at this size: the root's step, timed alone at
+    # the training's tile arguments and at the eval sweep's
+    root_step_figures(tr, bundle, counter, f"phase 8 ({TIER_W}x{TIER_H})")
     return launches, (tr, bundle, scene, ev, psnr)
 
 
@@ -2034,7 +1999,7 @@ def phase_batch(B, state, cam, target, device, seed) -> dict:
           "bit for bit")
     # K1/K2 at the B*T-tile launch against their plain versions, timed
     rec_fwd, ncon, t_fin, _ = phase_fwd(B, ent, meta, P)
-    rec_bwd, _, _ = phase_bwd(B, ent, meta, t_fin, ncon, P, seed)
+    rec_bwd = phase_bwd(B, ent, meta, t_fin, ncon, P, seed)
     del ent, meta, ncon, t_fin
     for r in (rec_fwd, rec_bwd):
         print(f"phase 12: {r['name']} at {BATCH * T} tiles: {r['ms']:.4f} "
@@ -2364,7 +2329,7 @@ def frame_ranges(lists) -> str:
     return ", ".join(f"{fr[0]}-{fr[-1]}" for fr in lists)
 
 
-def phase_scale(B, device, seed: int, workdir: str) -> dict:
+def phase_scale(B, device, seed: int, workdir: str):
     """Phase 14: the photo scene at the scale tier's size (48 frames at
     208x160, blender layout with exact depths) and the tier's recipe
     (`utils/tiers.py`, train_level 2, partition v1) with SCALE_CUTS,
@@ -2373,16 +2338,22 @@ def phase_scale(B, device, seed: int, workdir: str) -> dict:
     relative-pose rotation error below 3 degrees, the root covering frames
     0-47, 4 / 2 / 1 segments, 3 merges and MSS phase 1 three times (both
     level-1 non-leaves and the root), K1 and K2 launched once per step in
-    every trainer phase that trains. Returns the launches of the run."""
+    every trainer phase that trains; the root step timed at the last
+    training step's K. Then the root's step at the training's tile
+    arguments and at the eval sweep's (timed), the first profiled with the
+    binning's fill, and K1 and K2 at the root's training shape (frame 0's
+    entry lists at the training's tile arguments) against their plain
+    versions, timed. Returns the launches of the run and the K1/K2 records
+    and counts at the root's shape."""
     import torch
 
     from ht3dgs_torch import real_image_bench, run
     from ht3dgs_torch.eval import pose_eval
     from ht3dgs_torch.train import hierarchy
-    from ht3dgs_torch.train import step as step_lib
     from ht3dgs_torch.utils import photo_scene
     from ht3dgs_torch.utils.config import load_configs
-    from ht3dgs_torch.utils.profiling import StepCounter, host_share
+    from ht3dgs_torch.utils.profiling import (StepCounter, root_step_figures,
+                                              tile_lists)
     from ht3dgs_torch.utils.tiers import apply_tier, tier_dims
 
     h, w, n = tier_dims("scale")
@@ -2424,19 +2395,41 @@ def phase_scale(B, device, seed: int, workdir: str) -> dict:
         tr = counter.trainer
         root = tr.gs_bundle
         psnr = tr.evaluate_on_training_images(save_images=False)
-        # the host share of one root step, at the trainer's tile arguments
-        cam = tr.camera_for(0, pose=root.get_RT(0))
-        gt_img = tr.device_frame("rgb", 0)
-        lrs = tr._lrs(1, root)
-        step_ms, busy_ms = host_share(lambda: step_lib.gaussian_train_step(
-            root.state, root.opt, cam, gt_img, lrs, mode="tiled",
-            tile_args=tr._tile_args))
+        # one root step at the training's tile arguments (timed and
+        # profiled) and at the eval sweep's (timed)
+        root_rec = root_step_figures(tr, root, counter, "phase 14",
+                                     profile=True)
+        # K1 and K2 at the shape the root trains at: frame 0's entry lists
+        # at the training's tile arguments
+        ent, meta, *_ = tile_lists(root.state,
+                                   tr.camera_for(0, pose=root.get_RT(0)),
+                                   counter.train_tile_args)
     finally:
         os.chdir(cwd)
         StepCounter.restore(originals)
 
     lists = tr.partition(tr.seq_len, 2)
     table = counter.table(tr.timer)
+    T, K, _ = ent.shape
+    ta = dict(counter.train_tile_args or {})
+    check((ta.get("tile_h", 16), ta.get("tile_w", 16)) == (16, 16),
+          "14: the root trained on 16x16 tiles")
+    where = f"14: {{}} at the root's training shape (T = {T}, K = {K})"
+    rec_f, ncon, t_fin, work = phase_fwd(B, ent, meta, 256,
+                                         where.format("K1"), plain_reps=1)
+    rec_b = phase_bwd(B, ent, meta, t_fin, ncon, 256, seed,
+                      where.format("K2"), plain_reps=1)
+    del ent, meta, ncon, t_fin
+    # every launch of phase 14 is at T tiles but Phase A's, at B x T
+    batch = tr.pipe_cfg.phase_a_batch
+    at_t = {k: v - table["phase_a"]["launches"].get(k, 0)
+            for k, v in launches.items()}
+    print(f"phase 14: Phase A launches K1/K2 over B x T = {batch} x {T} = "
+          f"{batch * T} tiles a batched step (K = "
+          f"{(table['phase_a']['tile_args'] or {}).get('max_per_tile')}); "
+          f"the other phases over T = {T} tiles: {at_t} launches")
+    root_kernels = {"T": T, "K": K, "work": work, "launches": at_t,
+                    "blend_fwd": rec_f, "blend_bwd": rec_b}
     rot = real_image_bench.rotation_errors(tr.pose_dict, gt)
     ev = pose_eval.evaluate_poses(gt, root.poses[:n])
     print(f"phase 14: scale tier, {n} frames {w}x{h} written in "
@@ -2456,11 +2449,7 @@ def phase_scale(B, device, seed: int, workdir: str) -> dict:
               f"x{r.get('count', 0)}, {r.get('steps', 0)} steps "
               f"({r.get('model_steps', 0)} model-steps), {per}, launches "
               f"{r.get('launches', {})}, drops {r.get('drops', {})}")
-    print(f"phase 14: root gaussian_train_step at {w}x{h}: median "
-          f"{step_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / step_ms:.1f}%), host share "
-          f"{100 * (1 - busy_ms / step_ms):.1f}%; peak memory "
-          f"{peak / 2**30:.3f} GiB")
+    print(f"phase 14: peak memory of the training {peak / 2**30:.3f} GiB")
     print(f"phase 14: relative-pose rotation error, degrees: max "
           f"{max(rot):.4f}, mean {np.mean(rot):.4f}; ATE x100 "
           f"{100 * ev['ATE']:.4f}, RPE_trans x100 "
@@ -2470,9 +2459,7 @@ def phase_scale(B, device, seed: int, workdir: str) -> dict:
         "frames": n, "width": w, "height": h, "train_s": round(wall, 3),
         "partition": {lv: frame_ranges(lists[lv]) for lv in (2, 1, 0)},
         "bundles": counter.bundles, "phases": table,
-        "capacity_growths": tr.n_capacity_grows,
-        "tile_args": dict(tr._tile_args or ()),
-        "root_step_ms": step_ms, "root_step_busy_ms": busy_ms,
+        "capacity_growths": tr.n_capacity_grows, **root_rec,
         "peak_memory_gib": peak / 2**30, "train_view_psnr": psnr,
         "max_rot_err_deg": max(rot), "ATE_x100": 100 * ev["ATE"],
         "RPE_trans_x100": ev["RPE_trans_x100"],
@@ -2496,14 +2483,18 @@ def phase_scale(B, device, seed: int, workdir: str) -> dict:
         "phase_a", "leaf", "nonleaf_phase1", "nonleaf_phase2")),
         "14: every training phase took steps")
     check(all(launches.values()), "14: K1 and K2 launched")
-    return launches
+    last_k = dict(counter.tile_args["nonleaf_phase2"] or {})
+    check(root_rec["root_step_train"]["K"] == last_k.get("max_per_tile"),
+          "14: the root step timed at the last training step's K")
+    return launches, root_kernels
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one train step with torch.profiler "
+                    help="also profile one 1080p train step with "
+                    "torch.profiler (device time by kernel and by layer) "
                     "and write its table of device time by kernel to PATH")
     args = ap.parse_args()
 
@@ -2514,6 +2505,7 @@ def main() -> None:
     from ht3dgs_torch import kernels
     from ht3dgs_torch.core.camera import intrinsics_from_fov, make_camera
     from ht3dgs_torch.raster import blend as B
+    from ht3dgs_torch.utils.profiling import tile_lists
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2538,17 +2530,16 @@ def main() -> None:
     t0 = time.perf_counter()
     state = make_scene(args.seed, device)
     cam = make_camera(H, W, intrinsics_from_fov(1.2, H, W), device=device)
-    ent, meta, total, nd_m, nd_tile = kernel_entries(state, cam)
+    ent, meta, total, nd_m, nd_tile, _ = tile_lists(state, cam, TILE_ARGS)
     T, K, _ = ent.shape
     P = 16 * 16
     print(f"scene: {N} Gaussians, {W}x{H}, T={T} tiles, K={K}, "
-          f"{total} entries, dropped m={nd_m} tile={nd_tile}, "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{int(total)} entries, dropped m={int(nd_m)} "
+          f"tile={int(nd_tile)}, {time.perf_counter() - t0:.1f} s")
 
     # 3-4. kernels vs plain versions
-    rec_fwd, ncon, t_fin, n_eval = phase_fwd(B, ent, meta, P)
-    rec_bwd, n_kept, n_slot = phase_bwd(B, ent, meta, t_fin, ncon, P,
-                                        args.seed)
+    rec_fwd, ncon, t_fin, work = phase_fwd(B, ent, meta, P)
+    rec_bwd = phase_bwd(B, ent, meta, t_fin, ncon, P, args.seed)
     del ent, meta, ncon, t_fin
 
     # 5. ragged edges
@@ -2600,7 +2591,8 @@ def main() -> None:
     # 14. the scale tier at train_level 2, from files through run.main
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as scale_dir:
-        scale_launches = phase_scale(B, device, args.seed, scale_dir)
+        scale_launches, scale_root = phase_scale(B, device, args.seed,
+                                                 scale_dir)
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
                    "hierarchy": hier_launches[rec["name"]],
@@ -2613,9 +2605,13 @@ def main() -> None:
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:
+        from ht3dgs_torch.utils.profiling import profile_step
+
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
-        profile_step(*trained[:2], cam, trained[2], args.profile, step_ms)
+        profile_step(dict(state=trained[0], opt=trained[1], camera=cam,
+                          gt_image=trained[2], lrs=LRS, mode="tiled"),
+                     TILE_ARGS, "1080p", args.profile, step_ms)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2627,16 +2623,28 @@ def main() -> None:
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    floors = {
-        "blend_fwd": instr_floor_ms(
-            n_eval * per_eval["blend_fwd_kernel"], clock_mhz, n_sm),
-        "blend_bwd": instr_floor_ms(
-            n_kept * per_eval["blend_bwd_kernel"]
-            + n_slot * per_eval["blend_bwd_kernel/slot"], clock_mhz, n_sm)}
+    floor = floors(work, per_eval, clock_mhz, n_sm)
     print(f"instruction floor (SASS instructions / ({WARP_INSTR_PER_SM_CLOCK} per SM and "
           f"clock x {n_sm} SMs x {clock_mhz:.0f} MHz max SM clock)): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in floor.items())
           + f"; instructions per evaluation {per_eval}")
+    # the same kernels at the scale tier's root shape (phase 14)
+    root_floor = floors(scale_root["work"], per_eval, clock_mhz, n_sm)
+    for rec in (rec_fwd, rec_bwd):
+        r, name = scale_root[rec["name"]], rec["name"]
+        rec["scale_root"] = {
+            "T": scale_root["T"], "K": scale_root["K"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "floor_ms": root_floor[name],
+            "max_abs_err": r["max_abs_err"],
+            "launches": scale_root["launches"][name]}
+        print(f"scale root {name} (T = {scale_root['T']}, K = "
+              f"{scale_root['K']}): {r['ms']:.4f} ms/call, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), instruction floor {root_floor[name]:.4f} "
+              f"ms ({100 * root_floor[name] / r['ms']:.1f}% of the call), "
+              f"{scale_root['launches'][name]} launches at T tiles in "
+              f"phase 14; library: none")
     print(f"step: median {step_ms:.2f} ms, {H * W / 1e6 / (step_ms / 1e3):.3f}"
           f" MP/s fwd+bwd+Adam ({N} Gaussians, {W}x{H}; {gpu})")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -15,10 +15,15 @@ poses, logs and crash-resume crumbs in OUT/output/...); rerunning the same
 command with the same OUT resumes Phase A from its partial poses and each
 finished segment from its crumb. It prints the JAX tool's table row, then
 one JSON line: per trainer phase the seconds, steps, model-steps, ms per
-step, K1/K2 launches and farthest-first drops; every bundle's live rows,
-capacity and M at every level; the capacity growths, the wall and device
-ms of one root step and the peak device memory (on the card), PSNR, ATE,
-RPE and the largest relative-pose rotation error.
+step, K1/K2 launches, farthest-first drops and the tile arguments of its
+last step; every bundle's live rows, capacity and M at every level; the
+capacity growths; the tile arguments of the last training step
+(`train_tile_args`) and of the eval sweep, which grows K after training
+(`eval_tile_args`); on the card, the wall and device ms of one root step
+at each, and at the training's a torch.profiler split of its device time
+by kernel and by layer with the binning's filled slots (written also to
+OUT/root_step_profile.txt), and the peak device memory; PSNR, ATE, RPE
+and the largest relative-pose rotation error.
 """
 
 from __future__ import annotations
@@ -50,11 +55,11 @@ def run(out_dir: str, tier: str, device: str = "cuda") -> dict:
     import torch
 
     from .eval.pose_eval import evaluate_poses
-    from .train import step as step_lib
     from .train.hierarchy import HTGaussianTrainer
     from .utils import photo_scene
     from .utils.config import load_configs
-    from .utils.profiling import StepCounter, host_share
+    from .utils.profiling import (StepCounter, root_step_figures,
+                                  root_tile_args)
     from .utils.tiers import apply_tier, tier_dims
 
     on_card = device != "cpu"
@@ -87,16 +92,15 @@ def run(out_dir: str, tier: str, device: str = "cuda") -> dict:
     finally:
         os.chdir(cwd)
         StepCounter.restore(originals)
-    root_step = None
-    if on_card:
-        # one root step at the run's final tile arguments: wall and device
-        cam = tr.camera_for(0, pose=bundle.get_RT(0))
-        gt_img = tr.device_frame("rgb", 0)
-        lrs = tr._lrs(1, bundle)
-        ms, device_ms = host_share(lambda: step_lib.gaussian_train_step(
-            bundle.state, bundle.opt, cam, gt_img, lrs, mode=tr._mode,
-            tile_args=tr._tile_args))
-        root_step = {"ms": ms, "device_ms": device_ms}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else None)
+    # the root step at the training's tile arguments and at the sweep's
+    root = (root_step_figures(tr, bundle, counter, "root", profile=True,
+                              path=os.path.join(out_dir,
+                                                "root_step_profile.txt"))
+            if on_card else
+            {f"{k}_tile_args": v
+             for k, v in root_tile_args(tr, counter).items()})
     pred = bundle.poses[:tr.seq_len]
     stats = evaluate_poses(gt_w2c, pred)
     rot = rotation_errors(tr.pose_dict, gt_w2c)
@@ -107,10 +111,8 @@ def run(out_dir: str, tier: str, device: str = "cuda") -> dict:
         "hierarchical_training_s": round(wall, 3),
         "phases": counter.table(tr.timer),
         "bundles": counter.bundles,
-        "capacity_growths": tr.n_capacity_grows,
-        "tile_args": dict(tr._tile_args or ()), "root_step": root_step,
-        "peak_memory_gib": (round(torch.cuda.max_memory_allocated() / 2**30,
-                                  3) if on_card else None),
+        "capacity_growths": tr.n_capacity_grows, **root,
+        "peak_memory_gib": None if peak is None else round(peak, 3),
         "psnr": psnr, "ATE": stats["ATE"],
         "ATE_x100": stats["ATE"] * 100,
         "RPE_trans_x100": stats["RPE_trans_x100"],

@@ -4,13 +4,19 @@ counterpart of `jax_trace`), and `PhaseTimer` keeps the named-phase wall
 time and counts that the trainer logs at the end of a run. `host_share`
 splits a step's wall time on the card into device and host. `StepCounter`
 adds, per trainer phase, the steps, the blend kernels' launches, the
-farthest-first drops and the size of every bundle the trainer finishes
-(`real_image_bench`, `chip_smoke.py`)."""
+farthest-first drops, the tile arguments of the last step and the size of
+every bundle the trainer finishes (`real_image_bench`, `chip_smoke.py`).
+`root_step_figures` times a trained root's step at the tile arguments the
+training used and at the eval sweep's, and `profile_step` splits one step's
+device time by kernel and by the port's layers; `blend_work` counts what
+the blend kernels' bound and instruction floor divide by."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import re
 import statistics
 import time
 from collections import Counter, defaultdict
@@ -93,9 +99,13 @@ class StepCounter:
     the training steps (a batched step once), the model-steps in them, the
     launches of the blend kernels K1 and K2 and, over the single steps
     (`gaussian_train_step`), the entries the binning dropped farthest-first
-    at M and at a tile's K. With `watch_trainer` it also records each
-    bundle the hierarchical trainer finishes (a crumb's tag) or merges: its
-    live rows, capacity and M = capacity x dup_factor.
+    at M and at a tile's K; and the tile arguments of the phase's last step
+    of any kind (`tile_args`; the last of the run: `train_tile_args`). The
+    trainer's eval sweep grows `trainer._tile_args` past the training's
+    after the last step, so a root step timed as the training ran it takes
+    `train_tile_args`. With `watch_trainer` it also records each bundle
+    the hierarchical trainer finishes (a crumb's tag) or merges: its live
+    rows, capacity and M = capacity x dup_factor.
 
     It works by wrapping module functions, so it counts one run at a time;
     `restore` puts the originals back. Drops are summed on the device and
@@ -107,6 +117,8 @@ class StepCounter:
         self.model_steps: Counter = Counter()
         self.launches: Dict[Optional[str], Counter] = defaultdict(Counter)
         self.bundles: List[dict] = []
+        self.tile_args: Dict[Optional[str], Optional[dict]] = {}
+        self.train_tile_args: Optional[dict] = None
         self._drops: Dict[Optional[str], object] = {}
         if timer is not None:
             self.attach(timer)
@@ -136,25 +148,35 @@ class StepCounter:
 
         timer.phase = counted
 
-    def wrap(self, module, name: str, models=lambda a: 1, on_result=None):
-        """module.name counted as one step of models(args) models; returns
-        the original."""
+    def wrap(self, module, name: str, models=lambda a: 1, on_call=None):
+        """module.name counted as one step of models(args) models, and
+        on_call(args, kwargs, result) after each call; returns the
+        original."""
         fn = getattr(module, name)
 
         def counted(*a, **kw):
             self.steps[self.current] += 1
             self.model_steps[self.current] += models(a)
             out = fn(*a, **kw)
-            if on_result is not None:
-                on_result(out)
+            if on_call is not None:
+                on_call(a, kw, out)
             return out
 
         setattr(module, name, counted)
         return fn
 
-    def _add_drops(self, out) -> None:
+    def _step_tile_args(self, a, kw, out) -> None:
+        """A step's tile arguments (keyword-only in every step function)."""
+        ta = kw.get("tile_args")
+        self.tile_args[self.current] = self.train_tile_args = (
+            None if ta is None else dict(ta))
+
+    def _single_step(self, a, kw, out) -> None:
+        """A gaussian_train_step: its tile arguments and the drops it
+        reports."""
         import torch
 
+        self._step_tile_args(a, kw, out)
         m = out[2]
         d = torch.stack([m["n_dropped_m"], m["n_dropped_tile"]]).long()
         acc = self._drops.get(self.current)
@@ -168,10 +190,12 @@ class StepCounter:
         from ..train import step as step_lib
 
         return [(m, n, self.wrap(m, n, size, on)) for m, n, size, on in (
-            (phase_a, "fit_step", lambda a: a[3].shape[0], None),
-            (phase_a, "pose_step", lambda a: a[1].shape[0], None),
+            (phase_a, "fit_step", lambda a: a[3].shape[0],
+             self._step_tile_args),
+            (phase_a, "pose_step", lambda a: a[1].shape[0],
+             self._step_tile_args),
             (step_lib, "gaussian_train_step", lambda a: 1,
-             self._add_drops))]
+             self._single_step))]
 
     def _record(self, trainer, bundle, tag: str, frames) -> None:
         st = bundle.state
@@ -227,7 +251,8 @@ class StepCounter:
 
     def table(self, timer: PhaseTimer) -> Dict[str, dict]:
         """Per phase of timer: seconds, entries into the phase, steps,
-        model-steps, ms per step, launches and drops."""
+        model-steps, ms per step, launches, drops and the tile arguments of
+        its last step."""
         summary, drops = timer.summary(), self.drop_counts()
         out = {}
         for name, ph in summary.items():
@@ -238,5 +263,312 @@ class StepCounter:
                 "ms_per_step": (round(1e3 * ph["total_s"] / n, 3)
                                 if n else None),
                 "launches": dict(self.launches[name]),
-                "drops": drops.get(name, {"m": 0, "tile": 0})}
+                "drops": drops.get(name, {"m": 0, "tile": 0}),
+                "tile_args": self.tile_args.get(name)}
         return out
+
+
+def blend_work(ent, meta, ncon, P: int) -> dict:
+    """What the blend kernels' bound and instruction floor divide by, for
+    entry lists ent [T, K, 16] / meta [T, 4] and the forward's kept-entry
+    counts ncon [T, P] (P pixels a tile): K1's entry-pixel evaluations (a
+    pixel evaluates its kept entries and the one that stops it, within its
+    tile's count) and the bytes it must move; K2's kept entry-pixels (its
+    replay), its entry-pixel slots (its moment pass runs every pixel of a
+    tile over the entries up to the tile's last kept one) and its bytes."""
+    import torch
+
+    T, K, _ = ent.shape
+    cnt = meta[:, 0].long().clamp(max=K)
+    last = torch.minimum(ncon.amax(dim=1), cnt.float()).sum().item()
+    return dict(
+        n_eval=torch.minimum(cnt[:, None].float(), ncon + 1).sum().item(),
+        fwd_bytes=cnt.sum().item() * 64 + T * 16 + T * P * 6 * 4,
+        n_kept=ncon.sum().item(), n_slot=last * P,
+        bwd_bytes=last * 64 + T * 16 + T * P * 7 * 4 + T * K * 64)
+
+
+def tile_lists(state, camera, tile_args):
+    """The binning of one render of state through camera at tile_args, as
+    a train step's render bins it: (ent, meta, total, n_dropped_m,
+    n_dropped_tile, n_dropped_compact)."""
+    import torch
+
+    from ..raster.projection import project
+    from ..raster.tiled import build_tile_lists
+
+    with torch.no_grad():
+        proj = project(state.means, state.scales(), state.quats,
+                       state.opacities(), state.sh(), state.live, camera,
+                       state.active_sh_degree.reshape(-1)[0],
+                       state.max_sh_degree)
+        return build_tile_lists(proj, camera.height, camera.width,
+                                **dict(tile_args or {}))
+
+
+def binning_fill(state, camera, tile_args):
+    """How full the binning of one render is at tile_args: the entries the
+    Gaussians emit (the render's n_entries) against its M slots, the
+    entries the tiles keep (the sum of meta[:, 0]) and the drops at K and
+    at M. Returns (record, ent, meta)."""
+    ent, meta, total, nd_m, nd_tile, _ = tile_lists(state, camera,
+                                                    tile_args)
+    ta = dict(tile_args or {})
+    # build_tile_lists' default dup_factor
+    M = max(int(round(state.capacity * ta.get("dup_factor", 16))), 1)
+    rec = {"T": ent.shape[0], "K": ent.shape[1], "M": M,
+           "n_entries": int(total), "filled": min(int(total), M),
+           "kept": int(meta[:, 0].long().sum()),
+           "dropped_tile": int(nd_tile), "dropped_m": int(nd_m)}
+    return rec, ent, meta
+
+
+def _copied(obj):
+    """A dataclass with every tensor in it (in dicts too) cloned."""
+    import torch
+
+    def c(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        return {k: c(u) for k, u in v.items()} if isinstance(v, dict) else v
+
+    return dataclasses.replace(obj, **{f.name: c(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)
+                                       if f.init})
+
+
+def root_step(trainer, bundle, frame: int = 0) -> dict:
+    """gaussian_train_step's arguments, tile_args aside, for one step of a
+    trained bundle on `frame` as the trainer's MSS steps take it (its
+    learning rates at iteration 1, its render mode), on copies of the
+    bundle's state and optimizer: a timed or profiled step leaves the
+    bundle as it was."""
+    return dict(state=_copied(bundle.state), opt=_copied(bundle.opt),
+                camera=trainer.camera_for(frame, pose=bundle.get_RT(frame)),
+                gt_image=trainer.device_frame("rgb", frame),
+                lrs=trainer._lrs(1, bundle), mode=trainer._mode)
+
+
+def root_tile_args(trainer, counter: StepCounter) -> dict:
+    """The two sets of tile arguments a trained root is timed at: "train",
+    those of the last training step (counter.train_tile_args), and "eval",
+    the eval sweep's (`settle_eval_tile_args` grows trainer._tile_args
+    after training, up to K = 16,384)."""
+    return {"train": counter.train_tile_args,
+            "eval": dict(trainer._tile_args) if trainer._tile_args
+            else None}
+
+
+# The port's layers, by the function of the step that runs an op: while
+# profiling, each of these is wrapped in a torch.profiler range of its
+# layer's name, and an op counts in the innermost range around it. A
+# backward op counts in the layer of the forward op whose autograd node it
+# runs, with the blend's backward as K2. (Python stacks would do without
+# the wrapping, but torch 2.11's profiler records none for the ops.)
+LAYERS = ("projection + SH", "binning", "K1", "K2", "assemble", "loss",
+          "Adam", "densify stats", "other")
+_LAYER_FUNCS = (
+    ("ht3dgs_torch.raster", "_render", "projection + SH"),
+    ("ht3dgs_torch.raster.tiled", "_pack_attr_rows", "binning"),
+    ("ht3dgs_torch.raster.tiled", "build_tile_lists_from_rows", "binning"),
+    ("ht3dgs_torch.raster.tiled", "blend", "K1"),
+    ("ht3dgs_torch.raster.tiled", "_assemble", "assemble"),
+    ("ht3dgs_torch.train.step", "compute_loss", "loss"),
+    ("ht3dgs_torch.train.step", "psnr", "loss"),
+    ("ht3dgs_torch.core.adam", "apply", "Adam"),
+    ("ht3dgs_torch.train.densify", "accumulate_stats", "densify stats"),
+)
+_RANGE = "ht3dgs layer: "
+
+
+@contextlib.contextmanager
+def _layer_ranges():
+    """Wrap each of _LAYER_FUNCS in a profiler range named for its layer;
+    the originals are put back on exit."""
+    import importlib
+
+    import torch
+
+    def ranged(fn, name):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    originals = []
+    try:
+        for mod, attr, layer in _LAYER_FUNCS:
+            m = importlib.import_module(mod)
+            fn = getattr(m, attr)
+            originals.append((m, attr, fn))
+            setattr(m, attr, ranged(fn, _RANGE + layer))
+        yield
+    finally:
+        for m, attr, fn in originals:
+            setattr(m, attr, fn)
+
+
+def _forward_layer(evt) -> Optional[str]:
+    """The layer of the innermost range around a forward op."""
+    while evt is not None:
+        if evt.name.startswith(_RANGE):
+            return evt.name[len(_RANGE):]
+        evt = evt.cpu_parent
+    return None
+
+
+def _node_op(name: str) -> str:
+    """'MulBackward0' and 'aten::mul' -> 'mul'; '_BlendBackward' and
+    '_Blend' -> 'blend'."""
+    return re.sub(r"Backward\d*$", "", name.split("::")[-1]).replace(
+        "_", "").lower()
+
+
+def layer_times(events) -> Dict[str, dict]:
+    """Device ms of a profile's kernels by the port's layer (forward and
+    backward; the profile taken under `_layer_ranges`) and, in the
+    binning, by the op that launched them. K1 and K2 go by kernel name;
+    what no range claims is "other"."""
+
+    def backward_node(e):
+        while e is not None:
+            if e.scope == 1:   # RecordScope BACKWARD_FUNCTION
+                return e
+            e = e.cpu_parent
+        return None
+
+    fwd = defaultdict(list)
+    for e in events:
+        if e.sequence_nr >= 0 and backward_node(e) is None \
+                and not e.name.startswith(_RANGE):
+            fwd[(e.sequence_nr, e.thread)].append(e)
+
+    def layer_of(e):
+        node = backward_node(e)
+        if node is None:
+            return _forward_layer(e), "fwd"
+        cands = fwd.get((node.sequence_nr, node.fwd_thread), [])
+        named = [c for c in cands if _node_op(c.name) == _node_op(node.name)]
+        pick = (named or cands)[-1:]
+        layer = _forward_layer(pick[0]) if pick else None
+        return ("K2" if layer == "K1" else layer), "bwd"
+
+    out = {k: {"ms": 0.0, "fwd_ms": 0.0, "bwd_ms": 0.0} for k in LAYERS}
+    binning_ops: Counter = Counter()
+    for e in events:
+        if not e.kernels:
+            continue
+        layer, way = layer_of(e)
+        for k in e.kernels:
+            name = ("K1" if "blend_fwd" in k.name else
+                    "K2" if "blend_bwd" in k.name else layer or "other")
+            ms = k.duration / 1e3
+            out[name]["ms"] += ms
+            out[name][f"{way}_ms"] += ms
+            if name == "binning":
+                binning_ops[f"{e.name} ({way})"] += ms
+    return {"layers": out, "binning_ops": dict(binning_ops.most_common(8))}
+
+
+def profile_step(step: dict, tile_args, label: str,
+                 path: Optional[str] = None,
+                 step_ms: Optional[float] = None) -> dict:
+    """One gaussian_train_step of `step` (root_step's arguments, or any
+    state's) at tile_args under torch.profiler and `_layer_ranges`. Prints
+    and returns the device busy time (as a share of the profiled step and
+    of the unprofiled step_ms), the 12 kernels that take the most device
+    time and the device time by layer (`layer_times`); writes the
+    profiler's table by device time to `path` when given. On the card
+    only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..train import step as step_lib
+
+    def one():
+        step_lib.gaussian_train_step(**step, tile_args=tile_args)
+        torch.cuda.synchronize()
+
+    one()
+    with _layer_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    # device-side rows only (kernels, copies): the operator rows repeat
+    # their kernels' time, and so do the layer ranges' device rows
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(_RANGE)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        raise RuntimeError(f"profile [{label}]: no device time recorded")
+    if path:
+        with open(path, "w") as f:
+            f.write(avgs.table(sort_by="self_device_time_total",
+                               row_limit=60))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    rec = {"label": label, "tile_args": tile_args,
+           "profiled_ms": wall_ms, "busy_ms": busy_ms,
+           "busy_share_profiled": busy_ms / wall_ms,
+           "busy_share": busy_ms / step_ms if step_ms else None,
+           "top": [{"kernel": e.key, "ms": e.self_device_time_total / 1e3,
+                    "calls": e.count} for e in top],
+           **layer_times(prof.events())}
+    # kernels that no op on the host claims (the profiler links none)
+    rec["layers"]["other"]["ms"] += busy_ms - sum(
+        v["ms"] for v in rec["layers"].values())
+    share = (f", {100 * busy_ms / step_ms:.1f}% of the unprofiled step "
+             f"({step_ms:.2f} ms)" if step_ms else "")
+    print(f"profile [{label}]: device busy {busy_ms:.3f} ms = "
+          f"{100 * busy_ms / wall_ms:.1f}% of the profiled step "
+          f"({wall_ms:.2f} ms){share}" + (f"; table in {path}" if path
+                                          else ""))
+    for t in rec["top"]:
+        print(f"profile [{label}]: {t['ms']:8.3f} ms x{t['calls']:<4d} "
+              f"{t['kernel'][:90]}")
+    print(f"profile [{label}] by layer, device ms (fwd + bwd): " + "; ".join(
+        f"{k} {v['ms']:.3f} ({v['fwd_ms']:.3f} + {v['bwd_ms']:.3f})"
+        for k, v in sorted(rec["layers"].items(), key=lambda kv: -kv[1]["ms"])))
+    print(f"profile [{label}] binning by op, device ms: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in rec["binning_ops"].items()))
+    return rec
+
+
+def root_step_figures(trainer, bundle, counter: StepCounter, label: str,
+                      profile: bool = False,
+                      path: Optional[str] = None) -> dict:
+    """A trained root's step timed (`host_share`) at the training's tile
+    arguments and at the eval sweep's (`root_tile_args`), each printed with
+    its K; with `profile`, the step at the training's arguments also under
+    `profile_step`, with the binning's fill at those arguments
+    (`binning_fill`, frame 0). On the card only."""
+    from ..train import step as step_lib
+
+    step = root_step(trainer, bundle)
+    args = root_tile_args(trainer, counter)
+    rec = {"train_tile_args": args["train"], "eval_tile_args": args["eval"]}
+    for key in ("train", "eval"):
+        ms, device_ms = host_share(lambda: step_lib.gaussian_train_step(
+            **step, tile_args=args[key]))
+        k = dict(args[key] or {}).get("max_per_tile")
+        rec[f"root_step_{key}"] = {"K": k, "ms": ms, "device_ms": device_ms}
+        print(f"{label}: root gaussian_train_step at the "
+              f"{'training' if key == 'train' else 'eval sweep'}'s tile "
+              f"args {args[key]} (K = {k}): median {ms:.3f} ms, device "
+              f"busy {device_ms:.3f} ms ({100 * device_ms / ms:.1f}%), host "
+              f"share {100 * (1 - device_ms / ms):.1f}%")
+    if profile:
+        fill, _, _ = binning_fill(step["state"], step["camera"],
+                                  args["train"])
+        print(f"{label}: binning at the training's tile args, frame 0: "
+              f"{fill['n_entries']} entries emitted into M = {fill['M']} "
+              f"slots ({fill['filled']} filled, "
+              f"{100 * fill['filled'] / fill['M']:.2f}%), {fill['kept']} "
+              f"kept in T = {fill['T']} tiles of K = {fill['K']}, dropped "
+              f"{fill['dropped_tile']} at K and {fill['dropped_m']} at M")
+        rec["binning"] = fill
+        rec["profile"] = profile_step(step, args["train"], label, path,
+                                      rec["root_step_train"]["ms"])
+    return rec

@@ -1,7 +1,10 @@
 """ht3dgs_torch's single-device hierarchical trainer at the paper's depth,
 train_level 2 (4 leaves, 2 merged level-1 non-leaves, the root with MSS
 phase 1 from merged children), on a 10-frame 32x24 synthetic scene
-rendered by the oracle; and the photo scene's packaged photograph.
+rendered by the oracle; the photo scene's packaged photograph; and the
+measurement of the trained root: its step timed at the tile arguments the
+training used, not at the eval sweep's, and the blend kernels' work
+counts behind their bounds.
 
 The JAX package's hierarchical_training is not run here (its CPU compile
 takes minutes): the partition, the pose-chaining rule
@@ -21,8 +24,12 @@ from ht3dgs.train import hierarchy as j_hier  # noqa: E402
 from ht3dgs.utils import photo_scene as j_photo  # noqa: E402
 from ht3dgs.utils.config import load_configs as j_load_configs  # noqa: E402
 from ht3dgs_torch.core.gaussians import PARAM_FIELDS  # noqa: E402
+from ht3dgs_torch.raster.blend import blend_fwd_plain  # noqa: E402
+from ht3dgs_torch.train import evals as t_evals  # noqa: E402
 from ht3dgs_torch.train import hierarchy as t_hier  # noqa: E402
+from ht3dgs_torch.train import step as t_step  # noqa: E402
 from ht3dgs_torch.utils import photo_scene as t_photo  # noqa: E402
+from ht3dgs_torch.utils import profiling  # noqa: E402
 from ht3dgs_torch.utils import synthetic  # noqa: E402
 from ht3dgs_torch.utils.config import load_configs  # noqa: E402
 from ht3dgs_torch.utils.profiling import StepCounter  # noqa: E402
@@ -171,3 +178,93 @@ def test_photo_packaged_without_matplotlib(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path / "train")) == ["r_000.png",
                                                        "r_001.png"]
 
+
+
+def test_root_step_at_training_tile_args(level2):
+    """A few tiled steps of the root (the trainer's own host_train_step) at a
+    small K, then the eval sweep, which grows K past it: the counter holds
+    the last step's tile arguments, and the root step the tools time takes
+    them, not the sweep's."""
+    tr, root, _ = level2
+    saved = tr._mode, tr._tile_args
+    bundle = t_hier.ModelBundle(**{f: getattr(root, f) for f in (
+        "state", "opt", "radius", "spatial_scale", "poses")})
+    cam = tr.camera_for(0, pose=bundle.get_RT(0))
+    gt = tr.device_frame("rgb", 0)
+    counter = StepCounter()
+    originals = counter.wrap_steps()
+    try:
+        tr._mode = "tiled"
+        tr._tile_args = (("dup_factor", 32), ("max_per_tile", 4))
+        for it in (1, 2):
+            tr.host_train_step(bundle, cam, gt, it, densify=False,
+                               reset=False)
+        trained = dict(tr._tile_args)
+        t_evals.settle_eval_tile_args(tr, bundle.state, cam)
+        swept = dict(tr._tile_args)
+        StepCounter.restore(originals)
+        originals = []
+        assert counter.steps[None] == 2
+        assert counter.train_tile_args == trained == counter.tile_args[None]
+        assert swept["max_per_tile"] > trained["max_per_tile"]
+
+        args = profiling.root_tile_args(tr, counter)
+        assert args == {"train": trained, "eval": swept}
+        step = profiling.root_step(tr, bundle)
+        timed = StepCounter()
+        originals = timed.wrap_steps()
+        t_step.gaussian_train_step(**step, tile_args=args["train"])
+    finally:
+        StepCounter.restore(originals)
+        tr._mode, tr._tile_args = saved
+    assert timed.train_tile_args["max_per_tile"] == trained["max_per_tile"]
+    # the timed step ran on copies: the bundle is not stepped
+    assert step["state"].means is not bundle.state.means
+    assert torch.equal(step["state"].means, bundle.state.means)
+
+
+def test_blend_work_counts():
+    """blend_work's counts on ragged tiles (counts 0, 1, K and past K;
+    opaque entries that stop pixels early) against a count entry by entry
+    from the plain forward's ncon."""
+    rng = np.random.default_rng(5)
+    T, K, th, tw = 4, 6, 4, 4
+    P = th * tw
+    meta = np.array([[0, 0, 0, 0], [1, 4, 0, 0], [K, 0, 4, 0],
+                     [K + 3, 4, 4, 0]], np.int32)
+    ent = np.zeros((T, K, 16), np.float32)
+    ent[..., 0:2] = meta[:, None, 1:3] + rng.uniform(-2, 6, (T, K, 2))
+    ent[..., 2], ent[..., 4] = 0.5, 0.5
+    ent[..., 5:8] = rng.random((T, K, 3))
+    ent[..., 8] = 0.3
+    ent[..., 9] = rng.uniform(1, 5, (T, K))
+    # tiles 2 and 3: two flat opaque entries, then in tile 2 a third that
+    # stops every pixel; in tile 3 a pixel stops at the first entry after
+    # them that reaches it
+    ent[2:, :3, 2], ent[2:, :3, 4], ent[2:, :3, 8] = 1e-4, 1e-4, 0.99
+    ent[3, 2, 2], ent[3, 2, 4] = 0.5, 0.5
+    ent_t, meta_t = torch.from_numpy(ent), torch.from_numpy(meta)
+    ncon = blend_fwd_plain(ent_t, meta_t, th, tw)[3]
+    got = profiling.blend_work(ent_t, meta_t, ncon, P)
+
+    nc = ncon.numpy().astype(int)
+    assert (nc[2] == 2).all() and len(np.unique(nc[3])) > 2
+    n_eval = n_kept = n_slot = rows = 0
+    for t in range(T):
+        c = min(int(meta[t, 0]), K)
+        rows += c
+        last = 0
+        for p in range(P):
+            for k in range(c):
+                n_eval += 1          # entry k evaluated at pixel p
+                if k == nc[t, p]:
+                    break            # it stopped the pixel
+                n_kept += 1
+                last = max(last, k + 1)
+        n_slot += last * P
+    assert got["n_eval"] == n_eval
+    assert got["n_kept"] == n_kept
+    assert got["n_slot"] == n_slot
+    assert got["fwd_bytes"] == rows * 64 + T * 16 + T * P * 6 * 4
+    assert got["bwd_bytes"] == (n_slot // P) * 64 + T * 16 + T * P * 7 * 4 \
+        + T * K * 64
