@@ -32,8 +32,8 @@ Phases (any failure exits non-zero):
    (plain PyTorch, O(N*H*W)), image and means gradient;
 8. the hierarchical trainer: HTGaussianTrainer.hierarchical_training on the
    repo's "full" tier (a synthetic 16-frame video at 256x192 from 4,000
-   Gaussians, frames and depths in memory, the tier's recipe and budgets,
-   the root's MSS budgets cut, see tier_configs):
+   Gaussians, frames and depths in memory, the tier's recipe, its budgets
+   cut to HIER_CUTS and the root's MSS budgets cut, see tier_configs):
    Phase A (batched steps of 4 models), two leaves with densify/prune, a
    merge, the root's MSS phase 1 and 2, the eval sweep (batched renders)
    and the checkpoint. Checks: finite relative poses within 3 degrees of
@@ -62,9 +62,10 @@ Phases (any failure exits non-zero):
    mesh of 4 gloo ranks sharing the card, without and with compact_n, and
    the Gaussian-sharded step, each held to gaussian_train_step on the
    trained-stats scene (rotated, anisotropic: mesh_scene) at tile arguments
-   that drop no entry; (c) the full tier's hierarchical_training on a
-   (2, 2) mesh of 4 gloo ranks, each rank in a working directory of its
-   own and with deterministic algorithms after Phase A: poses within 3
+   that drop no entry; (c) the full tier's hierarchical_training, at
+   phase 13's depth (FILES_CUTS), on a (2, 2) mesh of 4 gloo ranks, each
+   rank in a working directory of its own and with deterministic
+   algorithms after Phase A: poses within 3
    degrees, PSNR above 18 dB, the root covering every frame and bit-equal
    on every rank (SHA-256), K1 and K2 launched once per step in every
    trainer phase of every rank; it prints the phase table, all-reduce and
@@ -117,12 +118,44 @@ Phases (any failure exits non-zero):
    (projection + SH, binning, K1, K2, assemble, loss, Adam, densify
    stats), and the binning's filled slots against M with the kept entries
    and the drops at K; and K1 and K2 at the root's training shape (frame
-   0's entry lists, T = 130 tiles, K = 4096) against their plain versions
-   under phases 3-4's tolerances, timed, with their bound and instruction
-   floor, and Phase A's shape (B x T tiles).
-It prints the card's name and power limit, one JSON line of kernel numbers
-(each kernel's 1080p figures, and under "scale_root" phase 14's), and
-last the line {"ok": true, "device": {...}}.
+   0's entry lists, T = 130 tiles, K as trained) against their plain
+   versions under phases 3-4's tolerances, timed, with their bound and
+   instruction floor, and Phase A's shape (B x T tiles);
+15. the published configs ("published"): configs/tanks/Family.yml and
+   configs/co3d/hydrant_106_12648_23157.yml through `run.main(["--config",
+   ...])` with the configs' own recipe (train_level 2, partition v1, VFI
+   pose mode, base+vfi MSS, render_mode auto, no init cap, the renderer's
+   default tile arguments with auto-grow, Phase A batch 8, opacity resets)
+   and only the iteration budgets cut (PUBLISHED_CUTS) and the precomputed
+   VFI provider on the CLI, each override printed with its reason. The
+   photo scene is written where each config reads it: Family as 24 frames
+   at 1600x900 with a COLMAP eval set (12 train, 12 test frames), the CO3D
+   sequence as 16 frames at 1200x900 with frame annotations (14 train, 2
+   test), exact depths and midpoint frames as the VFI frames. Family runs
+   train, eval_pose, eval_nvs and render; the CO3D config train, eval_nvs
+   and render (its eval_pose raises ValueError in both packages, which is
+   checked). Family's scene is written by a process on the host during
+   phases 12 and 14; the CO3D config runs in a second process (this
+   script with --published), which writes its scene during Family's Phase
+   A and trains after it, so the two share the card from then on and
+   their per-phase times are those of a shared card. Gates per config: the
+   recipe kept, PNG frames at their size,
+   every VFI-frame depth read from its file, train-view PSNR above 18 dB,
+   rotations within 3 degrees, eval_nvs PSNR above 18 dB, 120 rendered
+   frames, model.npz, K1 and K2 once per step in every trainer phase. It
+   prints the seconds, steps, ms per step, drops, tile arguments, opacity
+   resets and peak memory per trainer phase, every change of the tile
+   arguments, each bundle's live rows, capacity and M, the init points per
+   frame and the host seconds rendering the scene and decoding frames.
+   Then K1 and K2 at Family's trained root (frame 0's entry lists at the
+   training's last tile arguments, T = 5,700 tiles) against their plain
+   versions under phases 3-4's tolerances, timed, with bound and
+   instruction floor, and Phase A's launch shape (B x T tiles).
+It prints the wall seconds of each group of phases (`wall:` lines), the
+card's name and power limit, one JSON line of kernel numbers
+(each kernel's 1080p figures, under "scale_root" phase 14's and under
+"published_root" phase 15's), and last the line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -131,6 +164,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -706,10 +740,19 @@ def tier_configs(depth_dir: str):
     return model, pipe, optim
 
 
-def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
+# phase 8's depth: Phase A's fits 400 -> 100 and pose fits 150 -> 100
+# iterations, the leaf init 400 -> 100 iterations and the steps per leaf
+# frame 50 -> 12, so that phase 15 fits in the script's time
+HIER_CUTS = dict(phase_a_fit_iters=100, phase_a_pose_iters=100,
+                 leaf_init_iters=100, single_step=12)
+
+
+def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True,
+                 cuts=None):
     """The full tier's trainer on its synthetic scene, frames in memory,
     depths as .npy under depth/ of the working directory (written when
-    write_depth), with a (segments, tiles) mesh. Returns (trainer, scene)."""
+    write_depth), with a (segments, tiles) mesh and the budgets `cuts` set
+    over tier_configs'. Returns (trainer, scene)."""
     from ht3dgs_torch.core.camera import intrinsics_from_fov
     from ht3dgs_torch.data.readers import FrameInfo, SceneInfo
     from ht3dgs_torch.train import hierarchy
@@ -740,6 +783,8 @@ def tier_trainer(device, seed: int, mesh=(1, 1), write_depth=True):
             np.save(os.path.join("depth", f"{i:04d}.npy"), d)
     model, pipe, optim = tier_configs(os.path.abspath("depth"))
     pipe.mesh_segments, pipe.mesh_tiles = mesh
+    for k, v in (cuts or {}).items():
+        setattr(optim, k, v)
     tr = InMemoryTrainer("", model, pipe, optim, seed=seed, device=device)
     tr.result_path = os.path.abspath(tr.result_path)
     return tr, scene
@@ -769,7 +814,7 @@ def phase_hierarchy(B, device, seed: int, workdir: str):
     cwd = os.getcwd()
     os.chdir(workdir)   # the trainer writes output/ under the working dir
     try:
-        tr, scene = tier_trainer(device, seed)
+        tr, scene = tier_trainer(device, seed, cuts=HIER_CUTS)
         print(f"phase 8: scene {TIER_FRAMES} frames {TIER_W}x{TIER_H}, "
               f"{TIER_GAUSSIANS} Gaussians, {time.perf_counter() - t0:.1f} s")
         counter = StepCounter(tr.timer)
@@ -1549,7 +1594,7 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
     device = mesh_lib.rank_device("cuda")
     timer = CommTimer()
     os.chdir(rank_dir(workdir, "a", rank))
-    tr, scene = tier_trainer(device, seed, mesh=(2, 2))
+    tr, scene = tier_trainer(device, seed, mesh=(2, 2), cuts=FILES_CUTS)
     counter = StepCounter(tr.timer)
     sections = [0]
 
@@ -1634,7 +1679,7 @@ def tier_mesh_rank(rank: int, seed: int, workdir: str):
 
     # run B, in a second directory of this rank's own
     os.chdir(rank_dir(workdir, "b", rank))
-    trb, _ = tier_trainer(device, seed, mesh=(2, 2))
+    trb, _ = tier_trainer(device, seed, mesh=(2, 2), cuts=FILES_CUTS)
     if rank == 0:
         pose = os.path.join(trb.result_path, "pose")
         os.makedirs(pose)
@@ -1673,7 +1718,8 @@ def tier_resume_rank(rank: int, seed: int, workdir: str):
     deterministic()
     device = mesh_lib.rank_device("cuda")
     os.chdir(rank_dir(workdir, "b", rank))
-    tr, _ = tier_trainer(device, seed, mesh=(2, 2), write_depth=False)
+    tr, _ = tier_trainer(device, seed, mesh=(2, 2), write_depth=False,
+                         cuts=FILES_CUTS)
     files = checks.resume_files(tr.result_path)
     taken, n_poses = set(), []
 
@@ -2116,15 +2162,17 @@ def write_config(path: str, want, comment: str, what: str) -> None:
               f"({dataclasses.asdict(got)} != {dataclasses.asdict(ref)})")
 
 
-# Phase 13 trains phase 8's tier from files at a smaller depth than phase 8
-# (phase 14 drives the same entry point at the scale tier's full depth):
-# Phase A's fits 400 -> 200 and pose fits 150 -> 75 iterations, the leaf
-# init 400 -> 200, steps per leaf frame 50 -> 25, and the root's MSS phase
-# 1 and 2 from 10 and 25 to 5 and 10 per frame.
-FILES_CUTS = dict(phase_a_fit_iters=200, phase_a_pose_iters=75,
-                  leaf_init_iters=200, single_step=25,
-                  mss_phase1_iteration_per_frame=5,
-                  num_iterations_per_frame_each_level=[10, 10, 10])
+# Phases 13 and 11c train phase 8's tier at a smaller depth than phase 8
+# (phase 14 drives the same entry point at the scale tier's depth, phase
+# 15 the published configs), for the script's time: Phase A's fits 400 ->
+# 60 and pose fits 150 -> 40 iterations, the leaf init 400 -> 60, steps
+# per leaf frame 50 -> 8, and the root's MSS phase 1 and 2 from 10 and 25
+# to 3 and 6 per frame (11c's short process-group timeout is half the
+# root's seconds).
+FILES_CUTS = dict(phase_a_fit_iters=60, phase_a_pose_iters=40,
+                  leaf_init_iters=60, single_step=8,
+                  mss_phase1_iteration_per_frame=3,
+                  num_iterations_per_frame_each_level=[6, 6, 6])
 
 
 def files_config(path: str, img_dir: str, depth_dir: str) -> None:
@@ -2314,15 +2362,16 @@ def phase_files(B, device, seed: int, workdir: str) -> dict:
 # 1 at both non-leaf levels, 3 merges); only budgets are cut, each for the
 # script's time (the uncut recipe is ~40k steps, `python -m
 # ht3dgs_torch.real_image_bench OUT --scale`):
-# - Phase A's fits 300 -> 150 and pose fits 120 -> 60 iterations (12
-#   chunks of 4 pairs: 5,040 -> 2,520 batched steps);
-# - the leaf init 300 -> 150 iterations and the steps per leaf frame
-#   80 -> 40 (as phase 8 halves the full tier's);
-# - MSS phase 2 from 300 to 25 steps per frame at levels 1 and 0 (as phase
-#   8 cuts the root's); MSS phase 1 keeps the tier's 10 per frame.
-SCALE_CUTS = dict(phase_a_fit_iters=150, phase_a_pose_iters=60,
-                  leaf_init_iters=150, single_step=40,
-                  num_iterations_per_frame_each_level=[25, 25, 25])
+# - Phase A's fits 300 -> 40 and pose fits 120 -> 25 iterations (12
+#   chunks of 4 pairs);
+# - the leaf init 300 -> 40 iterations and the steps per leaf frame
+#   80 -> 14;
+# - MSS phase 1 from 10 to 4 and phase 2 from 300 to 10 steps per frame
+#   at levels 1 and 0.
+SCALE_CUTS = dict(phase_a_fit_iters=40, phase_a_pose_iters=25,
+                  leaf_init_iters=40, single_step=14,
+                  mss_phase1_iteration_per_frame=4,
+                  num_iterations_per_frame_each_level=[10, 10, 10])
 
 
 def frame_ranges(lists) -> str:
@@ -2489,6 +2538,438 @@ def phase_scale(B, device, seed: int, workdir: str):
     return launches, root_kernels
 
 
+# phase 15: the published configs through the CLI ("published"). The
+# configs' own recipe (train_level 2, partition v1, VFI pose mode, base+vfi
+# MSS, render_mode auto, no init cap, the renderer's default tile arguments
+# with auto-grow, Phase A batch 8, opacity resets), the photo scene written
+# where each config reads it, relative to the working directory.
+REPO = os.path.dirname(os.path.abspath(__file__))
+PUBLISHED = {
+    # the 1.6K cap's frame size (1920x1080 Tanks frames load at 1600x900);
+    # the stride-2 split ("Family" in the path): 12 train, 12 test frames
+    "tanks": dict(config="configs/tanks/Family.yml", frames=24, width=1600,
+                  height=900),
+    # one under the cap; the stride-8 split: 14 train, 2 test frames
+    "co3d": dict(config="configs/co3d/hydrant_106_12648_23157.yml",
+                 frames=16, width=1200, height=900),
+}
+# iteration budgets cut for the script's time, on the CLI; every other
+# value is the config's
+PUBLISHED_CUTS = dict(phase_a_fit_iters=50, phase_a_pose_iters=50,
+                      leaf_init_iters=20, single_step=7,
+                      num_iterations_per_frame_each_level=[15, 15, 15],
+                      mss_phase1_iteration_per_frame=2,
+                      reset_recovery_iters=10, eval_nvs_epochs=25)
+PUBLISHED_MODES = {"tanks": ("eval_pose", "eval_nvs", "render"),
+                   "co3d": ("eval_nvs", "render")}
+# the longest wait on another process of phase 15: Family's scene writer,
+# Family's Phase A (the CO3D process's wait), the CO3D process's end
+PUBLISHED_CHILD_S = 600
+
+
+def published_argv(kind: str, vfi_dir: str):
+    """The CLI of one published config: its path, then each override with
+    its reason."""
+    from ht3dgs_torch.utils.config import load_configs
+
+    cfg = os.path.join(REPO, PUBLISHED[kind]["config"])
+    _, pipe, optim = load_configs(cfg)
+    over = [("vfi_provider", "precomputed",
+             f"the config's {pipe.vfi_provider} needs "
+             f"{pipe.vfi_checkpoint}, which is not in the repo: the scene's "
+             "frames at the midpoint poses stand in"),
+            ("vfi_dir", vfi_dir, "where those frames are written")]
+    over += [(k, v, f"cut for the script's time (config: "
+              f"{getattr(optim, k)})") for k, v in PUBLISHED_CUTS.items()]
+    argv = ["--config", cfg]
+    for k, v, why in over:
+        text = yaml_value(v) if isinstance(v, list) else str(v)
+        print(f"phase 15 ({kind}): --{k} {text}: {why}")
+        argv += [f"--{k}", text]
+    print(f"phase 15 ({kind}): data paths, depth_dir, train_pose_mode, "
+          "render_mode, init_max_points, the tile presets and phase_a_batch: "
+          "the config's own")
+    return argv
+
+
+# written beside a published config's layout: the scene's true poses, K,
+# the VFI frames' directory and the seconds it took to write
+SCENE_RECORD = "scene.npz"
+
+
+def published_scene(kind: str, seed: int, workers=None) -> None:
+    """The photo scene written where config `kind` reads it, relative to the
+    working directory, on `workers` threads, with its SCENE_RECORD."""
+    from ht3dgs_torch.utils import photo_scene
+    from ht3dgs_torch.utils.config import load_configs
+
+    spec = PUBLISHED[kind]
+    model, pipe, _ = load_configs(os.path.join(REPO, spec["config"]))
+    t0 = time.perf_counter()
+    if kind == "tanks":
+        scene_dir = os.path.dirname(model.data_path_train)
+        gt, K = photo_scene.write_tanks(
+            scene_dir, n_frames=spec["frames"], height=spec["height"],
+            width=spec["width"], fovx=model.FovX, seed=seed, workers=workers)
+        vfi_dir = os.path.join(scene_dir, "vfi")
+    else:
+        vfi_dir = os.path.join(os.path.dirname(pipe.depth_dir), "vfi")
+        gt, K = photo_scene.write_co3d(
+            model.data_path_train, model.category, model.seq_name,
+            pipe.depth_dir, vfi_dir, n_frames=spec["frames"],
+            height=spec["height"], width=spec["width"], seed=seed,
+            workers=workers)
+    np.savez(SCENE_RECORD, gt=gt, K=K, vfi_dir=vfi_dir,
+             s=time.perf_counter() - t0)
+
+
+def published_scene_in(workdir: str, kind: str, seed: int,
+                       workers: int) -> None:
+    """published_scene in `workdir` (a process's target)."""
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    published_scene(kind, seed, workers)
+
+
+def published_config(B, device, seed: int, workdir: str, kind: str,
+                     signal=None, after=None) -> dict:
+    """One published config in `workdir`: its layout written (unless a
+    process wrote it there before: its SCENE_RECORD), then `run.main` in
+    train and each eval mode of PUBLISHED_MODES. With `signal`, that file
+    is created once Phase A has ended; with `after`, the training waits
+    for that file. Gates: the recipe kept, train-view PSNR, rotation
+    errors, eval_nvs PSNR, the files written, K1 and K2 once per step in
+    every trainer phase. Returns the record (with the trainer and
+    StepCounter under "trainer" and "counter")."""
+    import torch
+
+    from ht3dgs_torch import real_image_bench, run
+    from ht3dgs_torch.data import depth as depth_lib
+    from ht3dgs_torch.data import readers
+    from ht3dgs_torch.train import hierarchy
+    from ht3dgs_torch.utils.config import load_configs
+    from ht3dgs_torch.utils.profiling import StepCounter
+
+    spec = PUBLISHED[kind]
+    model, pipe, _ = load_configs(os.path.join(REPO, spec["config"]))
+    os.makedirs(workdir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    seen = {"decode_s": 0.0, "decodes": 0, "pcd": [], "depth": []}
+    hier = hierarchy.HTGaussianTrainer
+
+    def recorded_psnr(fn):
+        def call(self, *a, **kw):
+            seen["psnr"] = fn(self, *a, **kw)
+            return seen["psnr"]
+        return call
+
+    def timed_load(fn):
+        def call(self):
+            t0 = time.perf_counter()
+            img = fn(self)
+            seen["decode_s"] += time.perf_counter() - t0
+            seen["decodes"] += 1
+            return img
+        return call
+
+    def counted_pcd(fn):
+        def call(self, idx, down_sample=True, use_vfi_frame=False):
+            pcd = fn(self, idx, down_sample, use_vfi_frame)
+            seen["pcd"].append((idx, use_vfi_frame, len(pcd.points)))
+            return pcd
+        return call
+
+    def timed_write(fn):
+        def call(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            seen["write_s"] = seen.get("write_s", 0.0) + (
+                time.perf_counter() - t0)
+            return out
+        return call
+
+    def looked_up(fn):
+        def call(self, image, name):
+            seen["depth"].append(
+                (name, os.path.exists(os.path.join(self.dir, name + ".npy"))))
+            return fn(self, image, name)
+        return call
+
+    def signalled(fn):
+        def call(self):
+            out = fn(self)
+            open(signal, "w").close()
+            return out
+        return call
+
+    try:
+        prewritten = os.path.exists(SCENE_RECORD)
+        if not prewritten:
+            published_scene(kind, seed)
+        with np.load(SCENE_RECORD) as z:
+            gt, scene_s, vfi_dir = z["gt"], float(z["s"]), str(z["vfi_dir"])
+        argv = published_argv(kind, vfi_dir)
+        waited = 0.0
+        if after:
+            t0 = time.perf_counter()
+            while not os.path.exists(after):
+                waited = time.perf_counter() - t0
+                check(waited < PUBLISHED_CHILD_S, f"15 ({kind}): {after} "
+                      f"within {PUBLISHED_CHILD_S} s")
+                time.sleep(0.2)
+
+        counter = StepCounter(track_peaks=device.type == "cuda")
+        originals = counter.wrap_steps() + counter.watch_trainer(hier)
+        with contextlib.ExitStack() as stack:
+            for owner, name, make in (
+                    (hier, "evaluate_on_training_images", recorded_psnr),
+                    (readers.FrameInfo, "load_image", timed_load),
+                    (hier, "prepare_pcd", counted_pcd),
+                    (depth_lib.PrecomputedDepth, "__call__", looked_up),
+                    (hier, "_write_breadcrumb", timed_write),
+                    (hier, "save_checkpoint", timed_write)) + (
+                    ((hier, "_phase_a", signalled),) if signal else ()):
+                stack.enter_context(wrapped(owner, name, make))
+            try:
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                B.blend_fwd.launches = 0
+                B.blend_bwd.launches = 0
+                t0 = time.perf_counter()
+                run.main(["--mode", "train"] + argv, device=str(device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                launches = launch_counts(B)
+            finally:
+                StepCounter.restore(originals)
+            train_decode = dict(s=seen["decode_s"], frames=seen["decodes"])
+            tr = counter.trainer
+            table = counter.table(tr.timer)
+            out = tr.result_path
+            i_train = tr.scene_info.i_train
+            rot = real_image_bench.rotation_errors(tr.pose_dict, gt[i_train])
+            evals = {}
+            for mode in PUBLISHED_MODES[kind]:
+                k0 = launch_counts(B)
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                run.main(["--mode", mode] + argv, device=str(device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                evals[mode] = {"s": time.perf_counter() - t0, "launches": {
+                    k: v - k0[k] for k, v in launch_counts(B).items()},
+                    "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                 if device.type == "cuda" else None)}
+            if kind == "co3d":
+                # the default split's test frames against the train poses:
+                # raises in both packages (ROADMAP Queue 3)
+                try:
+                    run.main(["--mode", "eval_pose"] + argv,
+                             device=str(device))
+                    raised = None
+                except ValueError as e:
+                    raised = str(e)
+                print(f"phase 15 (co3d): eval_pose left out: with the "
+                      f"default split it compares the {len(i_train)} train "
+                      f"poses with the test frames' and raises in both "
+                      f"packages (here: ValueError: {raised})")
+                check(raised is not None, "15 (co3d): eval_pose raises "
+                      "ValueError, as in the JAX package")
+    finally:
+        os.chdir(cwd)
+    out = os.path.join(workdir, out)
+    nvs_line = open(os.path.join(out, "test", "test.txt")).read()\
+        .splitlines()[-1]
+    nvs_psnr = float(re.match(r"PSNR : ([0-9.]+)", nvs_line).group(1))
+    rendered = sorted(os.listdir(os.path.join(out, "nvs", model.traj_opt,
+                                              "img_out")))
+    pose_line = (open(os.path.join(out, "pose", "pose_eval.txt")).read()
+                 .strip() if "eval_pose" in PUBLISHED_MODES[kind] else None)
+    pcd = seen["pcd"]
+    vfi_depth = [found for name, found in seen["depth"]
+                 if name.endswith("_vfi")]
+    p, w = tr.pipe_cfg, tr.data[0]
+    rec = {
+        "config": spec["config"], "frames": spec["frames"],
+        "width": w.width, "height": w.height, "train_frames": tr.seq_len,
+        "scene_s": round(scene_s, 3), "scene_prewritten": prewritten,
+        "waited_s": round(waited, 3), "train_s": round(train_s, 3),
+        "train_frame_decodes": train_decode,
+        "init_points": {"frames": sum(not v for _, v, _ in pcd),
+                        "vfi_frames": sum(v for _, v, _ in pcd),
+                        "min": min(n for *_, n in pcd),
+                        "max": max(n for *_, n in pcd)},
+        "vfi_depth_lookups": {"found": sum(vfi_depth),
+                              "base_frame_depth": len(vfi_depth)
+                              - sum(vfi_depth)},
+        "bundles": counter.bundles, "phases": table,
+        "tile_arg_changes": counter.growths,
+        "capacity_growths": tr.n_capacity_grows,
+        "peak_memory_gib": max([r.get("peak_gib", 0.0)
+                                for r in table.values()] or [0.0]),
+        "checkpoint_and_crumb_writes_s": round(seen.get("write_s", 0.0), 3),
+        "train_view_psnr": seen["psnr"], "max_rot_err_deg": max(rot),
+        "eval": evals, "eval_nvs": nvs_line, "eval_nvs_psnr": nvs_psnr,
+        "pose_eval": pose_line, "rendered_frames": len(rendered),
+        "launches": launches}
+    print(f"phase 15 ({kind}): {spec['config']}: {spec['frames']} frames "
+          f"{w.width}x{w.height} ({tr.seq_len} train) written in "
+          f"{scene_s:.1f} s"
+          + (" (by a process, during phases 12 and 14)" if prewritten
+             else "")
+          + (f"; waited {waited:.1f} s for Family's Phase A" if after
+             else "")
+          + f"; run.main --mode train {train_s:.1f} s; frames "
+          f"decoded in {train_decode['s']:.2f} s ({train_decode['frames']} "
+          f"decodes)")
+    print(f"phase 15 ({kind}): init points per frame: {pcd}")
+    print(f"phase 15 ({kind}): VFI-frame depth: {sum(vfi_depth)} of "
+          f"{len(vfi_depth)} lookups found {{name}}_vfi.npy, the rest took "
+          "the base frame's depth")
+    for b in counter.bundles:
+        print(f"phase 15 ({kind}): bundle {b['tag']} frames {b['frames'][0]}-"
+              f"{b['frames'][1]}: {b['live']} live of capacity "
+              f"{b['capacity']}, M {b['M']}")
+    for name in HIER_PHASES:
+        r = table.get(name, {})
+        per = (f"{r['ms_per_step']:.2f} ms per step" if r.get("ms_per_step")
+               else "no steps")
+        print(f"phase 15 ({kind}) [{name}]: {r.get('s', 0.0):.3f} s "
+              f"x{r.get('count', 0)}, {r.get('steps', 0)} steps "
+              f"({r.get('model_steps', 0)} model-steps), {per}, launches "
+              f"{r.get('launches', {})}, drops {r.get('drops', {})}, tile "
+              f"args {r.get('tile_args')}, opacity resets "
+              f"{r.get('opacity_resets', 0)}, peak "
+              f"{r.get('peak_gib', float('nan')):.3f} GiB")
+    for g in counter.growths:
+        print(f"phase 15 ({kind}): tile arguments changed in {g['phase']} "
+              f"at its step {g['step']}: {g['tile_args']}")
+    print(f"phase 15 ({kind}): the crumbs and the checkpoint written "
+          f"(np.savez_compressed) in {rec['checkpoint_and_crumb_writes_s']}"
+          f" s of the training's {train_s:.1f} s")
+    for mode, e in evals.items():
+        print(f"phase 15 ({kind}): {mode} {e['s']:.3f} s, launches "
+              f"{e['launches']}, peak {e['peak_gib']} GiB")
+    print(f"phase 15 ({kind}): relative-pose rotation error max "
+          f"{max(rot):.4f} deg; train-view PSNR {seen['psnr']:.3f} dB; "
+          f"eval_nvs {nvs_line!r}; eval_pose {pose_line!r}; "
+          f"{len(rendered)} rendered frames; peak memory of the training "
+          f"{rec['peak_memory_gib']:.3f} GiB")
+
+    what = f"15 ({kind})"
+    check((p.train_pose_mode, p.render_mode, p.init_max_points,
+           p.phase_a_batch, p.tile_max_per_tile, p.tile_dup_factor,
+           p.train_level, p.partition_strategy,
+           p.multi_source_supervision) == ("vfi", "auto", 0, 8, 0, 0, 2,
+                                           "v1", "base+vfi"),
+          f"{what}: the config's recipe")
+    check((w.width, w.height) == (spec["width"], spec["height"])
+          and all(f._image is None and f.image_path.endswith(".png")
+                  for f in tr.data), f"{what}: frames read from PNG files "
+          f"at {spec['width']}x{spec['height']}")
+    check(vfi_depth and all(vfi_depth), f"{what}: every VFI-frame depth "
+          "read from its file")
+    check(seen["psnr"] > MIN_PSNR, f"{what}: train-view PSNR > {MIN_PSNR}")
+    check(max(rot) < MAX_ROT_DEG, f"{what}: rotation error < {MAX_ROT_DEG}")
+    check(nvs_psnr > MIN_PSNR, f"{what}: eval_nvs PSNR > {MIN_PSNR}")
+    check(len(rendered) == 120, f"{what}: render wrote 120 frames")
+    check(os.path.exists(os.path.join(out, "chkpnt", "model.npz")),
+          f"{what}: chkpnt/model.npz written")
+    for name, r in table.items():
+        for k in ("blend_fwd", "blend_bwd"):
+            check(r["launches"].get(k, 0) >= r["steps"],
+                  f"{what} [{name}]: {k} launched once per step")
+    check(all(table[n]["steps"] > 0 for n in (
+        "phase_a", "leaf", "nonleaf_phase1", "nonleaf_phase2")),
+        f"{what}: every training phase took steps")
+    return dict(rec, trainer=tr, counter=counter)
+
+
+def phase_published(B, device, seed: int, workdir: str, writer=None):
+    """Phase 15: configs/tanks/Family.yml and a configs/co3d/*.yml through
+    `run.main --config` (published_config; the CO3D config in a process of
+    its own, which trains once Family's Phase A has ended), then K1 and K2
+    at Family's trained root, once that process has ended: frame 0's entry
+    lists at the tile arguments the training ended on, against their plain
+    versions and timed, with Phase A's launch shape. `writer`: a process
+    writing Family's scene in workdir/tanks, waited for first. Returns
+    (launches of every run, the K1/K2 records at the root's shape)."""
+    import torch
+
+    from ht3dgs_torch.utils.profiling import tile_lists
+
+    launches = {"blend_fwd": 0, "blend_bwd": 0}
+    torch.cuda.empty_cache()
+    if writer is not None:
+        writer.join(PUBLISHED_CHILD_S)
+        check(writer.exitcode == 0, "15 (tanks): the scene written")
+    # the CO3D config runs in a process of its own: it writes its scene
+    # during Family's Phase A, trains once that has ended, so that its
+    # device work overlaps Family's host work (the crumbs' compression,
+    # the rendered PNGs) rather than Family's Phase A
+    record = os.path.join(workdir, "co3d.json")
+    log = os.path.join(workdir, "co3d.log")
+    phase_a_done = os.path.join(workdir, "tanks_phase_a_done")
+    with open(log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--published", "co3d", os.path.join(workdir, "co3d"), record,
+             phase_a_done], stdout=out)
+    try:
+        rec = published_config(B, device, seed,
+                               os.path.join(workdir, "tanks"), "tanks",
+                               signal=phase_a_done)
+        rc = child.wait(timeout=PUBLISHED_CHILD_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    print(open(log).read(), end="")
+    check(rc == 0, f"15 (co3d): its process exited with {rc}")
+    tr, counter = rec.pop("trainer"), rec.pop("counter")
+    root = tr.gs_bundle
+    ta = dict(counter.train_tile_args or {})
+    ent, meta, *_ = tile_lists(
+        root.state, tr.camera_for(0, pose=root.get_RT(0)), ta)
+    pa_args = rec["phases"]["phase_a"]["tile_args"] or {}
+    batch = tr.pipe_cfg.phase_a_batch
+    del tr, counter
+    print("published " + json.dumps({"tanks": rec}))
+    with open(record) as f:
+        recs = {"tanks": rec, "co3d": json.load(f)}
+    for rec in recs.values():
+        for k in launches:
+            launches[k] += rec["launches"][k] + sum(
+                e["launches"][k] for e in rec["eval"].values())
+    T, K, _ = ent.shape
+    check((ta.get("tile_h", 16), ta.get("tile_w", 16)) == (16, 16),
+          "15: Family's root trained on 16x16 tiles")
+    where = f"15: {{}} at Family's root, T = {T}, K = {K}"
+    rec_f, ncon, t_fin, work = phase_fwd(B, ent, meta, 256,
+                                         where.format("K1"), plain_reps=1)
+    rec_b = phase_bwd(B, ent, meta, t_fin, ncon, 256, seed,
+                      where.format("K2"), plain_reps=1)
+    del ent, meta, ncon, t_fin
+    # Family's training launches at T tiles: all but Phase A's (B x T)
+    fam = recs["tanks"]
+    pa = fam["phases"]["phase_a"]
+    at_t = {k: v - pa["launches"].get(k, 0)
+            for k, v in fam["launches"].items()}
+    print(f"phase 15: Family's Phase A launches K1/K2 over B x T = "
+          f"{batch} x {T} = {batch * T} tiles a batched step (K = "
+          f"{pa_args.get('max_per_tile', 1024)}, dup "
+          f"{pa_args.get('dup_factor', 16)}: the renderer's defaults unless "
+          f"grown; "
+          f"{pa['steps']} batched steps); its other phases over T = {T} "
+          f"tiles: {at_t} launches")
+    return launches, {"T": T, "K": K, "work": work, "launches": at_t,
+                      "blend_fwd": rec_f, "blend_bwd": rec_b}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2496,6 +2977,12 @@ def main() -> None:
                     help="also profile one 1080p train step with "
                     "torch.profiler (device time by kernel and by layer) "
                     "and write its table of device time by kernel to PATH")
+    ap.add_argument("--published", nargs=4,
+                    metavar=("KIND", "WORKDIR", "RECORD", "AFTER"),
+                    help="run only phase 15's config KIND in WORKDIR, its "
+                    "training once the file AFTER exists, and write its "
+                    "record to RECORD as JSON (phase 15 runs the CO3D "
+                    "config this way, beside Family)")
     args = ap.parse_args()
 
     import torch
@@ -2508,7 +2995,25 @@ def main() -> None:
     from ht3dgs_torch.utils.profiling import tile_lists
 
     device = torch.device("cuda")
+    if args.published:
+        kind, workdir, record, after = args.published
+        rec = published_config(B, device, args.seed, workdir, kind,
+                               after=after)
+        del rec["trainer"], rec["counter"]
+        with open(record, "w") as f:
+            json.dump(rec, f)
+        print("published " + json.dumps({kind: rec}))
+        return
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what: str) -> None:
+        """The wall seconds since the last lap, and since the start."""
+        now = time.perf_counter()
+        print(f"wall: {what} {now - t_lap[0]:.1f} s (at "
+              f"{now - t_start:.1f} s)")
+        t_lap[0] = now
+
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -2567,17 +3072,22 @@ def main() -> None:
 
     # 7. small scene against the oracle
     small_reference(device, args.seed)
+    lap("phases 1-7")
 
     # 8-9. the hierarchical trainer, then the eval modes on its root
     with tempfile.TemporaryDirectory() as workdir:
         hier_launches, ctx = phase_hierarchy(B, device, args.seed, workdir)
+        lap("phase 8")
         # 13. the normal entry point from files on disk, next to phase 8
         with tempfile.TemporaryDirectory() as files_dir:
             files_launches = phase_files(B, device, args.seed, files_dir)
+        lap("phase 13")
         eval_launches = phase_eval(B, device, ctx)
+        lap("phase 9")
     # 10. the networks
     phase_networks(device, args.seed, ctx[2].frames)
     del ctx
+    lap("phase 10")
     # 11. multi-device: NCCL at world size 1, then gloo ranks on the card
     mesh_state = mesh_scene(state, args.seed, device)
     nccl_launches = phase_nccl(B, mesh_state, cam, trained[2], device)
@@ -2585,14 +3095,36 @@ def main() -> None:
     mesh_launches = phase_mesh(B, device, args.seed, mesh_state, cam)
     del mesh_state
     torch.cuda.empty_cache()
-    # 12. the batch axis at the operating point
-    batch_launches = phase_batch(B, state, cam, trained[2], device,
-                                 args.seed)
-    # 14. the scale tier at train_level 2, from files through run.main
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as scale_dir:
-        scale_launches, scale_root = phase_scale(B, device, args.seed,
-                                                 scale_dir)
+    lap("phase 11")
+    with tempfile.TemporaryDirectory() as published_dir:
+        # phase 15's Family scene, written by a process on the host while
+        # phases 12 and 14 run (the first waits on the card, the second
+        # on one core)
+        writer = multiprocessing.get_context("spawn").Process(
+            target=published_scene_in, args=(
+                os.path.join(published_dir, "tanks"), "tanks", args.seed,
+                max(1, (os.cpu_count() or 1) - 2)))
+        writer.start()
+        try:
+            # 12. the batch axis at the operating point
+            batch_launches = phase_batch(B, state, cam, trained[2], device,
+                                         args.seed)
+            # 14. the scale tier at train_level 2, from files through
+            # run.main
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory() as scale_dir:
+                scale_launches, scale_root = phase_scale(B, device, args.seed,
+                                                         scale_dir)
+            lap("phases 12 and 14")
+            # 15. the published configs through the CLI
+            torch.cuda.empty_cache()
+            published_launches, published_root = phase_published(
+                B, device, args.seed, published_dir, writer)
+        finally:
+            if writer.is_alive():
+                writer.terminate()
+            writer.join()
+    lap("phase 15")
     for rec in (rec_fwd, rec_bwd):
         by_path = {"train_step": rec["launches"],
                    "hierarchy": hier_launches[rec["name"]],
@@ -2601,7 +3133,8 @@ def main() -> None:
                    + mesh_launches[rec["name"]],
                    "batch": batch_launches[rec["name"]],
                    "files": files_launches[rec["name"]],
-                   "scale": scale_launches[rec["name"]]}
+                   "scale": scale_launches[rec["name"]],
+                   "published": published_launches[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     if args.profile:
@@ -2628,23 +3161,27 @@ def main() -> None:
           f"clock x {n_sm} SMs x {clock_mhz:.0f} MHz max SM clock)): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in floor.items())
           + f"; instructions per evaluation {per_eval}")
-    # the same kernels at the scale tier's root shape (phase 14)
-    root_floor = floors(scale_root["work"], per_eval, clock_mhz, n_sm)
-    for rec in (rec_fwd, rec_bwd):
-        r, name = scale_root[rec["name"]], rec["name"]
-        rec["scale_root"] = {
-            "T": scale_root["T"], "K": scale_root["K"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "floor_ms": root_floor[name],
-            "max_abs_err": r["max_abs_err"],
-            "launches": scale_root["launches"][name]}
-        print(f"scale root {name} (T = {scale_root['T']}, K = "
-              f"{scale_root['K']}): {r['ms']:.4f} ms/call, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), instruction floor {root_floor[name]:.4f} "
-              f"ms ({100 * root_floor[name] / r['ms']:.1f}% of the call), "
-              f"{scale_root['launches'][name]} launches at T tiles in "
-              f"phase 14; library: none")
+    # the same kernels at the scale tier's root shape (phase 14) and at
+    # Family's 1600x900 root (phase 15)
+    for key, root, label in (("scale_root", scale_root, "scale root"),
+                             ("published_root", published_root,
+                              "Family root 1600x900")):
+        root_floor = floors(root["work"], per_eval, clock_mhz, n_sm)
+        for rec in (rec_fwd, rec_bwd):
+            r, name = root[rec["name"]], rec["name"]
+            rec[key] = {
+                "T": root["T"], "K": root["K"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "floor_ms": root_floor[name],
+                "max_abs_err": r["max_abs_err"],
+                "launches": root["launches"][name]}
+            print(f"{label} {name} (T = {root['T']}, K = {root['K']}): "
+                  f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"instruction floor {root_floor[name]:.4f} ms "
+                  f"({100 * root_floor[name] / r['ms']:.1f}% of the call), "
+                  f"{root['launches'][name]} launches at T tiles in its "
+                  f"training; library: none")
     print(f"step: median {step_ms:.2f} ms, {H * W / 1e6 / (step_ms / 1e3):.3f}"
           f" MP/s fwd+bwd+Adam ({N} Gaussians, {W}x{H}; {gpu})")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -241,7 +241,14 @@ def _coerce(key: str, value):
                 # string; match Optional[...] variants too (e.g. FovX)
                 t = str(f.type)
                 if t.startswith("List"):
-                    return value
+                    # a flow sequence, as in a config file: "[25, 25, 25]"
+                    # (the JAX package keeps the string, which its trainer
+                    # cannot index)
+                    parsed = load_yaml(f"v: {value}\n")["v"]
+                    if not isinstance(parsed, list):
+                        raise ValueError(f"--{key} takes a list such as "
+                                         f"[300, 300, 300], got {value!r}")
+                    return parsed
                 if "float" in t or isinstance(f.default, float):
                     return float(value)
                 if "int" in t or (isinstance(f.default, int)

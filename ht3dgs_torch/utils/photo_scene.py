@@ -8,9 +8,14 @@ re-projection of the photo planes, composited near-to-far, with exact
 ground-truth poses and depth maps: real image statistics, real parallax,
 zero pose/depth noise.
 
-The dataset is written in the NeRF-synthetic layout (transforms_train.json
+`write_dataset` writes it in the NeRF-synthetic layout (transforms_train.json
 + PNGs + depth dir) that data.readers.read_blender reads, so the full
-pipeline (train / eval_pose / eval_nvs) runs on it unchanged.
+pipeline (train / eval_pose / eval_nvs) runs on it unchanged. `write_tanks`
+and `write_co3d` write it in the layouts that the published configs read
+(configs/tanks/*.yml: a frame folder with a COLMAP model; configs/co3d/*.yml:
+CO3D-v2 frame annotations), with exact depth maps and, for each pair of
+consecutive train frames, the frame at their midpoint pose as the
+precomputed VFI frame.
 
 The photograph is a byte-for-byte copy of matplotlib's sample data
 (`mpl-data/sample_data/grace_hopper.jpg`, 61,306 bytes, SHA-256
@@ -22,8 +27,10 @@ needs no matplotlib; the PNGs are written by utils.image.write_png.
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -200,4 +207,145 @@ def write_dataset(out_dir: str, n_frames: int = 12, height: int = 96,
                        "transform_matrix": c2w_gl.tolist()})
     with open(os.path.join(out_dir, "transforms_train.json"), "w") as f:
         json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+    return np.stack(poses).astype(np.float32), K.astype(np.float32)
+
+
+def midpoint_pose(w2c_a: np.ndarray, w2c_b: np.ndarray) -> np.ndarray:
+    """The w2c pose halfway between two: the slerp of the camera rotations
+    at 1/2 and the mean of the camera centres."""
+    from ..data.colmap import qvec2rotmat, rotmat2qvec
+
+    ca, cb = np.linalg.inv(w2c_a), np.linalg.inv(w2c_b)
+    qa, qb = rotmat2qvec(ca[:3, :3]), rotmat2qvec(cb[:3, :3])
+    q = qa + (qb if qa @ qb >= 0 else -qb)
+    c2w = np.eye(4)
+    c2w[:3, :3] = qvec2rotmat(q / np.linalg.norm(q))
+    c2w[:3, 3] = 0.5 * (ca[:3, 3] + cb[:3, 3])
+    return np.linalg.inv(c2w)
+
+
+def _render_to(jobs, K: np.ndarray, height: int, width: int, seed: int,
+               workers=None) -> None:
+    """Render each job (w2c, PNG path, depth .npy path) and write both, on
+    `workers` threads (default: one per core; numpy and zlib release the
+    GIL)."""
+    from .image import write_png
+
+    planes = default_planes(np.random.default_rng(seed))
+
+    def one(job):
+        w2c, png, npy = job
+        rgb, dep = render_frame(planes, w2c, K, height, width)
+        write_png(png, (rgb * 255).astype(np.uint8))
+        np.save(npy, dep)
+
+    with ThreadPoolExecutor(max(1, workers or os.cpu_count() or 1)) as ex:
+        list(ex.map(one, jobs))
+
+
+def _midpoint_jobs(poses, train_ids, vfi_dir: str, depth_dir: str,
+                   names) -> list:
+    """The VFI frame of each pair of consecutive train frames k, k+1 (the
+    trainer's indices): {vfi_dir}/{k}_to_{k+1}.png and its depth
+    {depth_dir}/{name of frame k}_vfi.npy, where the trainer looks them
+    up."""
+    return [(midpoint_pose(poses[a], poses[b]),
+             os.path.join(vfi_dir, f"{k}_to_{k + 1}.png"),
+             os.path.join(depth_dir, f"{names[a]}_vfi.npy"))
+            for k, (a, b) in enumerate(zip(train_ids[:-1], train_ids[1:]))]
+
+
+def write_tanks(scene_dir: str, n_frames: int = 24, height: int = 900,
+                width: int = 1600, fovx: float = 1.369319187580747,
+                seed: int = 0, workers=None):
+    """The scene as a Tanks and Temples folder, as configs/tanks/*.yml read
+    it: {scene_dir}/images/*.png (the images_only training frames),
+    sparse/0/{cameras,images,points3D}.bin (a PINHOLE COLMAP model of the
+    true poses: the eval set), depth/{stem}.npy, and the VFI frames of the
+    train split (every frame but the test frames of the split the readers
+    take for this path) in vfi/ with their depths depth/{stem}_vfi.npy.
+    Returns (gt_w2c [F, 4, 4], K)."""
+    from ..data import colmap as cl
+    from ..data import imgcodec
+    from ..data.pointcloud import unproject_depth
+    from ..data.readers import _split, sample_rate_for
+
+    img_dir, dep_dir, vfi_dir = (os.path.join(scene_dir, d)
+                                 for d in ("images", "depth", "vfi"))
+    for d in (img_dir, dep_dir, vfi_dir):
+        os.makedirs(d, exist_ok=True)
+    fx = width / (2.0 * np.tan(fovx / 2.0))
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]],
+                 np.float64)
+    poses = camera_trajectory(n_frames)
+    names = [f"{i + 1:06d}" for i in range(n_frames)]
+    i_train, _ = _split(n_frames, sample_rate_for(img_dir))
+    jobs = [(w2c, os.path.join(img_dir, n + ".png"),
+             os.path.join(dep_dir, n + ".npy"))
+            for w2c, n in zip(poses, names)]
+    _render_to(jobs + _midpoint_jobs(poses, i_train, vfi_dir, dep_dir, names),
+               K, height, width, seed, workers)
+
+    cams = {1: cl.ColmapCamera(1, "PINHOLE", width, height,
+                               np.array([fx, fx, width / 2, height / 2]))}
+    images = {i + 1: cl.ColmapImage(i + 1, cl.rotmat2qvec(w2c[:3, :3]),
+                                    w2c[:3, 3].copy(), 1, n + ".png")
+              for i, (w2c, n) in enumerate(zip(poses, names))}
+    # sparse points: frame 0's depth on a 16-pixel grid (frame 0 is the
+    # world frame), coloured by the frame
+    grid = (slice(None, None, 16), slice(None, None, 16))
+    dep0 = np.load(os.path.join(dep_dir, names[0] + ".npy"))[grid]
+    K0 = K.copy()
+    K0[:2] /= 16
+    rgb0 = imgcodec.load_rgb8(jobs[0][1])[grid].reshape(-1, 3) / 255.0
+    cl.write_model(os.path.join(scene_dir, "sparse", "0"), cams, images,
+                   unproject_depth(dep0, K0).astype(np.float64), rgb0)
+    return np.stack(poses).astype(np.float32), K.astype(np.float32)
+
+
+def write_co3d(data_root: str, category: str, seq_name: str, depth_dir: str,
+               vfi_dir: str, n_frames: int = 16, height: int = 900,
+               width: int = 1200, focal_ndc=(2.0, 2.0),
+               principal_ndc=(0.02, -0.01), seed: int = 0, workers=None):
+    """The scene as one CO3D-v2 sequence, as configs/co3d/*.yml read it:
+    the frame annotations at {data_root}/{category}/{subdir}/
+    frame_annotations.jgz (seq_name = "{subdir}_{sequence}", the readers'
+    join), frames at {data_root}/{subdir}/{sequence}/images/frame*.png
+    (their annotated paths), depths {depth_dir}/{frame basename}.npy, and
+    the VFI frames of the train split (stride 8) in vfi_dir with their
+    depths {depth_dir}/{basename}_vfi.npy. The camera is annotated in
+    pytorch3d's NDC convention (focal_ndc, principal_ndc) and the poses as
+    pytorch3d world-to-view R, T. Returns (gt_w2c [F, 4, 4], K)."""
+    from ..data.readers import _split, co3d_ndc_to_opencv
+
+    subdir, sequence = seq_name.split("_")[0], "_".join(
+        seq_name.split("_")[1:])
+    rel_dir = f"{subdir}/{sequence}/images"
+    ann_dir = os.path.join(data_root, category, subdir)
+    for d in (os.path.join(data_root, rel_dir), ann_dir, depth_dir, vfi_dir):
+        os.makedirs(d, exist_ok=True)
+    K = co3d_ndc_to_opencv(principal_ndc, focal_ndc,
+                           (height, width)).astype(np.float64)
+    poses = camera_trajectory(n_frames)
+    paths = [f"{rel_dir}/frame{i + 1:06d}.png" for i in range(n_frames)]
+    names = [os.path.basename(p) for p in paths]
+    flip = np.diag([-1.0, -1.0, 1.0])
+    entries = [{
+        "sequence_name": sequence, "frame_number": i,
+        "image": {"path": path, "size": [height, width]},
+        "depth": {"path": os.path.relpath(
+            os.path.join(depth_dir, name + ".npy"), data_root)},
+        "viewpoint": {"R": (flip @ w2c[:3, :3]).T.tolist(),
+                      "T": (flip @ w2c[:3, 3]).tolist(),
+                      "focal_length": list(focal_ndc),
+                      "principal_point": list(principal_ndc)}}
+        for i, (w2c, path, name) in enumerate(zip(poses, paths, names))]
+    with gzip.open(os.path.join(ann_dir, "frame_annotations.jgz"), "wt") as f:
+        json.dump(entries, f)
+    i_train, _ = _split(n_frames, 8)
+    jobs = [(w2c, os.path.join(data_root, p),
+             os.path.join(depth_dir, n + ".npy"))
+            for w2c, p, n in zip(poses, paths, names)]
+    _render_to(jobs + _midpoint_jobs(poses, i_train, vfi_dir, depth_dir,
+                                     names), K, height, width, seed, workers)
     return np.stack(poses).astype(np.float32), K.astype(np.float32)

@@ -107,11 +107,22 @@ class StepCounter:
     the hierarchical trainer finishes (a crumb's tag) or merges: its live
     rows, capacity and M = capacity x dup_factor.
 
+    It also records each change of the tile arguments from one step to the
+    next (`growths`: the trainer's auto-grow), the opacity resets per phase
+    and, with `track_peaks`, each phase's peak of allocated device memory
+    (it resets the device's peak statistics as each phase starts).
+
     It works by wrapping module functions, so it counts one run at a time;
     `restore` puts the originals back. Drops are summed on the device and
     read once, by `drop_counts`."""
 
-    def __init__(self, timer: Optional[PhaseTimer] = None):
+    def __init__(self, timer: Optional[PhaseTimer] = None,
+                 track_peaks: bool = False):
+        self.track_peaks = track_peaks
+        self.growths: List[dict] = []
+        self.resets: Counter = Counter()
+        self.peaks: Dict[str, int] = {}
+        self._stepped = False
         self.current = None
         self.steps: Counter = Counter()
         self.model_steps: Counter = Counter()
@@ -136,6 +147,12 @@ class StepCounter:
 
         @contextlib.contextmanager
         def counted(name):
+            import torch
+
+            peaks = self.track_peaks and torch.cuda.is_available()
+            if peaks:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
             k0 = self._counts()
             outer, self.current = self.current, name
             try:
@@ -145,6 +162,9 @@ class StepCounter:
                 self.current = outer
                 for k, v in self._counts().items():
                     self.launches[name][k] += v - k0[k]
+                if peaks:
+                    self.peaks[name] = max(self.peaks.get(name, 0),
+                                           torch.cuda.max_memory_allocated())
 
         timer.phase = counted
 
@@ -168,8 +188,13 @@ class StepCounter:
     def _step_tile_args(self, a, kw, out) -> None:
         """A step's tile arguments (keyword-only in every step function)."""
         ta = kw.get("tile_args")
-        self.tile_args[self.current] = self.train_tile_args = (
-            None if ta is None else dict(ta))
+        ta = None if ta is None else dict(ta)
+        if self._stepped and ta != self.train_tile_args:
+            self.growths.append({"phase": self.current,
+                                 "step": self.steps[self.current],
+                                 "tile_args": ta})
+        self._stepped = True
+        self.tile_args[self.current] = self.train_tile_args = ta
 
     def _single_step(self, a, kw, out) -> None:
         """A gaussian_train_step: its tile arguments and the drops it
@@ -185,17 +210,25 @@ class StepCounter:
     def wrap_steps(self) -> list:
         """Wrap the step functions the trainer calls: Phase A's batched
         steps (models: the targets' or tangents' leading axis) and
-        gaussian_train_step. Returns [(module, name, original)]."""
+        gaussian_train_step, and count the trainer's opacity resets.
+        Returns [(module, name, original)]."""
         from ..train import phase_a
         from ..train import step as step_lib
 
+        reset = step_lib.reset_opacity
+
+        def counted_reset(*a, **kw):
+            self.resets[self.current] += 1
+            return reset(*a, **kw)
+
+        step_lib.reset_opacity = counted_reset
         return [(m, n, self.wrap(m, n, size, on)) for m, n, size, on in (
             (phase_a, "fit_step", lambda a: a[3].shape[0],
              self._step_tile_args),
             (phase_a, "pose_step", lambda a: a[1].shape[0],
              self._step_tile_args),
             (step_lib, "gaussian_train_step", lambda a: 1,
-             self._single_step))]
+             self._single_step))] + [(step_lib, "reset_opacity", reset)]
 
     def _record(self, trainer, bundle, tag: str, frames) -> None:
         st = bundle.state
@@ -251,8 +284,9 @@ class StepCounter:
 
     def table(self, timer: PhaseTimer) -> Dict[str, dict]:
         """Per phase of timer: seconds, entries into the phase, steps,
-        model-steps, ms per step, launches, drops and the tile arguments of
-        its last step."""
+        model-steps, ms per step, launches, drops, the tile arguments of
+        its last step, the opacity resets and, when tracked, the peak of
+        allocated device memory."""
         summary, drops = timer.summary(), self.drop_counts()
         out = {}
         for name, ph in summary.items():
@@ -264,7 +298,10 @@ class StepCounter:
                                 if n else None),
                 "launches": dict(self.launches[name]),
                 "drops": drops.get(name, {"m": 0, "tile": 0}),
-                "tile_args": self.tile_args.get(name)}
+                "tile_args": self.tile_args.get(name),
+                "opacity_resets": self.resets[name],
+                **({"peak_gib": self.peaks[name] / 2**30}
+                   if name in self.peaks else {})}
         return out
 
 
