@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation runs on the device:
+1 - (union of the device operations' intervals) / window."""
+
+
+def read(run):
+    t = run.get("trace")
+    if not t:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
