@@ -17,6 +17,7 @@ import torch
 from ..core.camera import Camera
 from ..core.gaussians import GaussianState
 from ..core.se3 import se3_act, se3_inv
+from ..utils.profiling import count, span
 from .projection import Projected, project
 from .reference import rasterize_oracle
 from .tiled import rasterize_tiled
@@ -75,15 +76,11 @@ def render_batched(states_or_state: GaussianState, cameras: Camera,
                    mode, tile_args)
 
 
-def _render(state, camera, pose, bg_color, means2d_probe, scale_modifier,
-            view_dependent, mode, tile_args) -> Dict[str, torch.Tensor]:
-    """Both entry points: the projection broadcasts the model's rows over
-    the cameras' and poses' leading [B], if any, and the rasterizers take
-    the batched Projected as it comes."""
-    dev = state.device
-    if bg_color is None:
-        bg_color = torch.zeros(3, device=dev)
-
+def _project_views(state, camera, pose, means2d_probe, scale_modifier,
+                   view_dependent) -> Projected:
+    """The projection of _render: the model's rows posed (if a pose is
+    given), projected with their colours, and the densify probe's offset
+    added to the 2D means."""
     means = state.means
     campos_override = None
     sh_means_override = None
@@ -113,6 +110,22 @@ def _render(state, camera, pose, bg_color, means2d_probe, scale_modifier,
                               means2d_probe[:, 1] * (0.5 * camera.height)],
                              dim=-1)
         proj = proj._replace(means2d=proj.means2d + offset)
+    return proj
+
+
+def _render(state, camera, pose, bg_color, means2d_probe, scale_modifier,
+            view_dependent, mode, tile_args) -> Dict[str, torch.Tensor]:
+    """Both entry points: the projection broadcasts the model's rows over
+    the cameras' and poses' leading [B], if any, and the rasterizers take
+    the batched Projected as it comes."""
+    # the rows the render projects: live ones against the capacity
+    count("live_rows", state.live)
+    count("capacity_rows", state.live.numel())
+    with span("projection"):
+        if bg_color is None:
+            bg_color = torch.zeros(3, device=state.device)
+        proj = _project_views(state, camera, pose, means2d_probe,
+                              scale_modifier, view_dependent)
 
     if mode == "auto":
         big = (state.capacity >= 8192

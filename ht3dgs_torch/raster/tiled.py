@@ -40,6 +40,7 @@ from typing import Dict
 
 import torch
 
+from ..utils.profiling import count, span, traced
 from .blend import ATTRS, blend
 from .projection import Projected
 
@@ -48,6 +49,7 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+@traced("binning")
 def _pack_attr_rows(proj: Projected) -> torch.Tensor:
     """[..., N, 16]: mx, my, ca, cb, cc, r, g, b, op, depth, ex, ey, 0..."""
     depths = torch.where(torch.isfinite(proj.depths), proj.depths, 0.0)
@@ -58,6 +60,12 @@ def _pack_attr_rows(proj: Projected) -> torch.Tensor:
             proj.extents[..., 1]]
     pad = torch.zeros_like(depths)
     return torch.stack(cols + [pad] * (ATTRS - len(cols)), dim=-1)
+
+
+def _slots(N: int, dup_factor, compact_n) -> int:
+    """M, the entry slots of one table of N rows."""
+    Nc = min(compact_n, N) if compact_n else N
+    return max(int(round(Nc * dup_factor)), 1)
 
 
 def _binning_impl(attrs, valid, depths, height, width, tile_h, tile_w,
@@ -72,7 +80,7 @@ def _binning_impl(attrs, valid, depths, height, width, tile_h, tile_w,
     nty = _cdiv(height, tile_h)
     T = ntx * nty
     Nc = min(compact_n, N) if compact_n else N
-    M = max(int(round(Nc * dup_factor)), 1)
+    M = _slots(N, dup_factor, compact_n)
     K = max_per_tile
 
     # tile rectangles from the tight per-axis extents (getRect semantics)
@@ -168,9 +176,15 @@ def build_tile_lists_from_rows(attrs, valid, depths, height: int, width: int,
     if not batched:
         attrs, valid, depths = attrs[None], valid[None], depths[None]
     geom = (height, width, tile_h, tile_w, max_per_tile, dup_factor)
-    ent, meta, *counters = _Binning.apply(
-        attrs, valid, depths, geom, int(compact_n) if compact_n else 0,
-        bool(route_bf16))
+    compact_n = int(compact_n) if compact_n else 0
+    with span("binning"):
+        ent, meta, *counters = _Binning.apply(
+            attrs, valid, depths, geom, compact_n, bool(route_bf16))
+    B, N = attrs.shape[:2]
+    for name, c in zip(("entries", "dropped_m", "dropped_k",
+                        "dropped_compact"), counters):
+        count(name, c)
+    count("slots", B * _slots(N, dup_factor, compact_n))
     if not batched:
         counters = [c[0] for c in counters]
     return (ent, meta, *counters)
@@ -207,9 +221,11 @@ def rasterize_from_rows(attrs, valid, depths, height: int, width: int,
     ent, meta, total, nd_m, nd_tile, nd_c = build_tile_lists_from_rows(
         attrs, valid, depths, height, width, tile_h, tile_w, max_per_tile,
         dup_factor, route_bf16, compact_n)
-    rgb_t, t_t, dep_t = blend(ent, meta, tile_h, tile_w)
-    return _assemble(rgb_t, t_t, dep_t, height, width, tile_h, tile_w,
-                     bg_color, total, nd_m, nd_tile, nd_c)
+    with span("blend"):
+        rgb_t, t_t, dep_t = blend(ent, meta, tile_h, tile_w)
+    with span("assemble"):
+        return _assemble(rgb_t, t_t, dep_t, height, width, tile_h, tile_w,
+                         bg_color, total, nd_m, nd_tile, nd_c)
 
 
 def _assemble(rgb, t_buf, dep, height, width, tile_h, tile_w, bg_color,

@@ -18,6 +18,7 @@ needs one card per rank; the (segment, tile) mesh is pipe.mesh_segments x
 pipe.mesh_tiles ranks.
 """
 
+import contextlib
 import sys
 import time
 
@@ -25,7 +26,7 @@ import time
 def main(argv=None, device="cuda"):
     from .train.hierarchy import HTGaussianTrainer
     from .utils.config import configs_from_cli
-    from .utils.profiling import torch_trace
+    from .utils.profiling import torch_trace, tracing
 
     model, pipe, optim, args = configs_from_cli(argv)
     rank = 0
@@ -43,7 +44,9 @@ def main(argv=None, device="cuda"):
 
     trainer = HTGaussianTrainer(model.source_path, model, pipe, optim,
                                 device=device)
-    with torch_trace(pipe.trace_dir):
+    # with a trace directory, the port's spans show in the trace
+    spans = tracing() if pipe.trace_dir else contextlib.nullcontext()
+    with torch_trace(pipe.trace_dir), spans:
         if args.mode == "train":
             trainer.hierarchical_training()
         elif args.mode == "pose_only":

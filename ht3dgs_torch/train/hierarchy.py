@@ -62,7 +62,7 @@ from ..parallel import comm
 from ..parallel import mesh as mesh_lib
 from ..raster import render_batched
 from ..utils.image import save_image
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, span, traced
 from . import phase_a as pa
 from . import step as step_lib
 from .lockstep import pad_rows
@@ -158,6 +158,7 @@ class HTGaussianTrainer(GaussianTrainer):
         return tuple(torch.randn((cap, 3), generator=self.gen,
                                  device=self.device) for _ in range(2))
 
+    @traced("lrs")
     def _lrs(self, iteration: int, bundle: ModelBundle,
              fix_feat: bool = False) -> Dict[str, float]:
         o = self.sched
@@ -207,34 +208,43 @@ class HTGaussianTrainer(GaussianTrainer):
         if self._mode in ("tiled", "pallas", "auto") \
                 and self._steps_since_tune >= 50:
             self._steps_since_tune = 0
-            nd_m = int(metrics["n_dropped_m"])
-            nd_tile = int(metrics["n_dropped_tile"])
-            if nd_m > 0 or nd_tile > 0:
-                ta = dict(self._tile_args or {})
-                if nd_tile > 0:
-                    ta["max_per_tile"] = min(
-                        2 * ta.get("max_per_tile", 1024), 4096)
-                if nd_m > 0:
-                    ta["dup_factor"] = min(2 * ta.get("dup_factor", 16), 64)
-                new_args = tuple(sorted(ta.items()))
-                if new_args != self._tile_args:   # silent once saturated
-                    self._tile_args = new_args
-                    self.logger.info(f"tile capacity grown: {ta}")
+            self._tune_tile_args(metrics)
 
         if do_densify:
             use_screen = iteration > o.opacity_reset_interval
-            bundle.state, bundle.opt, dropped = step_lib.densify_and_prune(
-                bundle.state, bundle.opt,
-                self._split_noise(bundle.state.capacity),
-                o.densify_grad_threshold, 0.005, bundle.radius,
-                o.percent_dense, 20.0, use_screen)
-            if int(dropped) > 0:
-                self._grow_capacity(bundle)
+            with span("densify"):
+                bundle.state, bundle.opt, dropped = \
+                    step_lib.densify_and_prune(
+                        bundle.state, bundle.opt,
+                        self._split_noise(bundle.state.capacity),
+                        o.densify_grad_threshold, 0.005, bundle.radius,
+                        o.percent_dense, 20.0, use_screen)
+                if int(dropped) > 0:
+                    self._grow_capacity(bundle)
         if do_reset:
-            bundle.state, bundle.opt = step_lib.reset_opacity(
-                bundle.state, bundle.opt)
+            with span("reset"):
+                bundle.state, bundle.opt = step_lib.reset_opacity(
+                    bundle.state, bundle.opt)
             self.just_reset = True
         return metrics
+
+    @traced("tune")
+    def _tune_tile_args(self, metrics):
+        """Grow the tile capacity that a step's counters report exhausted
+        (reading them syncs the device)."""
+        nd_m = int(metrics["n_dropped_m"])
+        nd_tile = int(metrics["n_dropped_tile"])
+        if nd_m > 0 or nd_tile > 0:
+            ta = dict(self._tile_args or {})
+            if nd_tile > 0:
+                ta["max_per_tile"] = min(
+                    2 * ta.get("max_per_tile", 1024), 4096)
+            if nd_m > 0:
+                ta["dup_factor"] = min(2 * ta.get("dup_factor", 16), 64)
+            new_args = tuple(sorted(ta.items()))
+            if new_args != self._tile_args:   # silent once saturated
+                self._tile_args = new_args
+                self.logger.info(f"tile capacity grown: {ta}")
 
     def _grow_capacity(self, bundle: ModelBundle):
         """Double the capacity. HT3DGS_MAX_CAPACITY (env) clamps it: past
@@ -548,6 +558,7 @@ class HTGaussianTrainer(GaussianTrainer):
             i = self.rng.randint(1, last)
         return visited[i]
 
+    @traced("frame")
     def _frame_camera_gt(self, bundle: ModelBundle, fidx: int,
                          use_vfi: bool):
         """(camera, gt) of one iteration: the frame, or the VFI midway
@@ -577,21 +588,23 @@ class HTGaussianTrainer(GaussianTrainer):
             for _ in range(1, self.sched.reset_recovery_iters):
                 fidx = self.rng.randint(0, view_idx_prev)
                 self.global_iteration += 1
-                cam, gt = self._frame_camera_gt(bundle, fidx, False)
-                self.host_train_step(
-                    bundle, cam, gt, self.global_iteration,
-                    densification_interval=o.densification_interval_leaf)
+                with span("iteration", step=self.global_iteration):
+                    cam, gt = self._frame_camera_gt(bundle, fidx, False)
+                    self.host_train_step(
+                        bundle, cam, gt, self.global_iteration,
+                        densification_interval=o.densification_interval_leaf)
 
         for it in range(1, o.single_step + 1):
             fidx = self.sample_training_frame(visited)
             self.global_iteration += 1
-            use_vfi = (use_vfi_mss and fidx + 1 < self.seq_len
-                       and self.rng.random() < o.mss_phase2_ratio)
-            cam, gt = self._frame_camera_gt(bundle, fidx, use_vfi)
-            m = self.host_train_step(
-                bundle, cam, gt, self.global_iteration,
-                densification_interval=o.densification_interval_leaf)
-            self._after_step(bundle)
+            with span("iteration", step=self.global_iteration):
+                use_vfi = (use_vfi_mss and fidx + 1 < self.seq_len
+                           and self.rng.random() < o.mss_phase2_ratio)
+                cam, gt = self._frame_camera_gt(bundle, fidx, use_vfi)
+                m = self.host_train_step(
+                    bundle, cam, gt, self.global_iteration,
+                    densification_interval=o.densification_interval_leaf)
+                self._after_step(bundle)
             if it % 100 == 0:
                 self.logger.info(
                     f"[leaf] git {self.global_iteration} it {it} "
@@ -612,12 +625,13 @@ class HTGaussianTrainer(GaussianTrainer):
         for it in range(1, num_iterations + 1):
             fidx = self.rng.choice(indices)
             self.global_iteration += 1
-            use_vfi = (use_vfi_mss and fidx + 1 < self.seq_len
-                       and self.rng.random() < o.mss_phase2_ratio)
-            cam, gt = self._frame_camera_gt(bundle, fidx, use_vfi)
-            m = self.host_train_step(bundle, cam, gt, self.global_iteration,
-                                     sched=o)
-            self._after_step(bundle)
+            with span("iteration", step=self.global_iteration):
+                use_vfi = (use_vfi_mss and fidx + 1 < self.seq_len
+                           and self.rng.random() < o.mss_phase2_ratio)
+                cam, gt = self._frame_camera_gt(bundle, fidx, use_vfi)
+                m = self.host_train_step(bundle, cam, gt,
+                                         self.global_iteration, sched=o)
+                self._after_step(bundle)
             if it % 100 == 0:
                 self.logger.info(
                     f"[nonleaf p2] git {self.global_iteration} it {it} "
@@ -642,40 +656,48 @@ class HTGaussianTrainer(GaussianTrainer):
         for it in range(1, num_iterations + 1):
             fidx = self.rng.choice(indices)
             self.global_iteration += 1
-            if self.rng.random() < self.sched.mss_phase1_ratio:
-                alpha = self.rng.random()
-                if fidx == indices[-1]:
-                    fidx -= 1
-                # small pose algebra on the host's CPU, no device round trip
-                p0, p1 = (se3.se3_from_matrix(torch.from_numpy(
-                    np.asarray(bundle.get_RT(i), np.float32)))
-                    for i in (fidx, fidx + 1))
-                pose_i = se3.se3_to_matrix(
-                    se3.se3_interp(p0, p1, alpha)).numpy().astype(np.float32)
-                child = None
-                for c in children[::-1]:
-                    if fidx >= c.start_fidx and fidx in c.to_visit_frames:
-                        child = c
-                        break
-                if child is None:
-                    raise ValueError(f"no child covers frame {fidx}")
-                pose_wrt_child = pose_i @ np.linalg.inv(
-                    bundle.get_RT(child.start_fidx))
-                pseudo = step_lib.render_eval(
-                    child.state, self.camera_for(0, pose=pose_wrt_child),
-                    mode=self._mode, tile_args=self._tile_args)["image"]
-                m = self.host_train_step(
-                    bundle, self.camera_for(0, pose=pose_i), pseudo,
-                    self.global_iteration, sched=o)
-            else:
-                cam, gt = self._frame_camera_gt(bundle, fidx, False)
+            with span("iteration", step=self.global_iteration):
+                if self.rng.random() < self.sched.mss_phase1_ratio:
+                    cam, gt = self._pseudo_view(bundle, children, indices,
+                                                fidx)
+                else:
+                    cam, gt = self._frame_camera_gt(bundle, fidx, False)
                 m = self.host_train_step(bundle, cam, gt,
                                          self.global_iteration, sched=o)
-            self._after_step(bundle)
+                self._after_step(bundle)
             if it % 100 == 0:
                 self.logger.info(
                     f"[nonleaf p1] git {self.global_iteration} it {it} "
                     f"psnr {float(m['psnr']):.2f}")
+
+    @traced("frame")
+    def _pseudo_view(self, bundle: ModelBundle, children: List[ModelBundle],
+                     indices: List[int], fidx: int):
+        """(camera, gt) of a pseudo-view: the frozen child that covers
+        frame fidx rendered at a pose SE(3)-interpolated between fidx and
+        the next frame (the last frame steps back one)."""
+        alpha = self.rng.random()
+        if fidx == indices[-1]:
+            fidx -= 1
+        # small pose algebra on the host's CPU, no device round trip
+        p0, p1 = (se3.se3_from_matrix(torch.from_numpy(
+            np.asarray(bundle.get_RT(i), np.float32)))
+            for i in (fidx, fidx + 1))
+        pose_i = se3.se3_to_matrix(
+            se3.se3_interp(p0, p1, alpha)).numpy().astype(np.float32)
+        child = None
+        for c in children[::-1]:
+            if fidx >= c.start_fidx and fidx in c.to_visit_frames:
+                child = c
+                break
+        if child is None:
+            raise ValueError(f"no child covers frame {fidx}")
+        pose_wrt_child = pose_i @ np.linalg.inv(
+            bundle.get_RT(child.start_fidx))
+        pseudo = step_lib.render_eval(
+            child.state, self.camera_for(0, pose=pose_wrt_child),
+            mode=self._mode, tile_args=self._tile_args)["image"]
+        return self.camera_for(0, pose=pose_i), pseudo
 
     # ------------------------------------------------------------------ #
     # merge

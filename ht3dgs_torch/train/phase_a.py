@@ -31,6 +31,7 @@ from ..core.camera import Camera
 from ..core.gaussians import PARAM_FIELDS, GaussianState
 from ..core.se3 import se3_retr
 from ..raster import render_batched
+from ..utils.profiling import span, traced
 from .losses import compute_loss, psnr
 
 # iterations between the host's reads of the early-stop flags
@@ -107,6 +108,7 @@ def _finite(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(g), g, 0.0)
 
 
+@traced("step")
 def fit_step(state: GaussianState, opt: adam_lib.AdamState,
              cameras: Camera, gts: torch.Tensor, lrs, active: torch.Tensor,
              *, mode, tile_args, lambda_dssim):
@@ -118,14 +120,18 @@ def fit_step(state: GaussianState, opt: adam_lib.AdamState,
               for f in PARAM_FIELDS}
     out = render_batched(state.replace_params(params), cameras, mode=mode,
                          tile_args=tile_args)
-    ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
-    g = torch.autograd.grad(ld["loss"].sum(), list(params.values()),
-                            allow_unused=True)
+    with span("loss"):
+        ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
+    with span("backward"):
+        g = torch.autograd.grad(ld["loss"].sum(), list(params.values()),
+                                allow_unused=True)
     grads = {f: _finite(gx, params[f]) for f, gx in zip(PARAM_FIELDS, g)}
-    new_params, new_opt = adam_lib.apply(
-        {f: p.detach() for f, p in params.items()}, grads, opt, lrs)
+    with span("adam"):
+        new_params, new_opt = adam_lib.apply(
+            {f: p.detach() for f, p in params.items()}, grads, opt, lrs)
     with torch.no_grad():
-        ps = psnr(out["image"], gts)
+        with span("loss"):
+            ps = psnr(out["image"], gts)
         state, opt = _select(active, state.replace_params(new_params),
                              new_opt, state, opt)
     return state, opt, {"loss": ld["loss"].detach(), "psnr": ps}
@@ -175,32 +181,34 @@ def batched_fit(states: Sequence[GaussianState],
     ids = list(range(B))          # the models still in the stack
     results = [None] * B
     for g in range(n_iters):
-        state, opt, cams, gt, rates, active = batch
-        lrs = dict(rates, means=rates["means"][:, g])
-        state, opt, m = fit_step(state, opt, cams, gt, lrs, active,
-                                 mode=mode, tile_args=tile_args,
-                                 lambda_dssim=lambda_dssim)
-        if early_stop and g + 1 > stop_after:
-            active = active & ~(m["psnr"] > 35.0)
-        batch = (state, opt, cams, gt, rates, active)
-        if early_stop and (g + 1) % poll == 0:
-            keep = active.tolist()
-            if not all(keep):
-                # a stopped model's results are final: out of the stack
-                for j in range(len(ids)):
-                    if not keep[j]:
-                        results[ids[j]] = _index((state, opt), j)
-                rows = torch.tensor([j for j, k in enumerate(keep) if k],
-                                    device=dev)
-                ids = [b for b, k in zip(ids, keep) if k]
-                if not ids:
-                    break
-                batch = tuple(_index(x, rows) for x in batch)
+        with span("iteration"):
+            state, opt, cams, gt, rates, active = batch
+            lrs = dict(rates, means=rates["means"][:, g])
+            state, opt, m = fit_step(state, opt, cams, gt, lrs, active,
+                                     mode=mode, tile_args=tile_args,
+                                     lambda_dssim=lambda_dssim)
+            if early_stop and g + 1 > stop_after:
+                active = active & ~(m["psnr"] > 35.0)
+            batch = (state, opt, cams, gt, rates, active)
+            if early_stop and (g + 1) % poll == 0:
+                keep = active.tolist()
+                if not all(keep):
+                    # a stopped model's results are final: out of the stack
+                    for j in range(len(ids)):
+                        if not keep[j]:
+                            results[ids[j]] = _index((state, opt), j)
+                    rows = torch.tensor(
+                        [j for j, k in enumerate(keep) if k], device=dev)
+                    ids = [b for b, k in zip(ids, keep) if k]
+                    if not ids:
+                        break
+                    batch = tuple(_index(x, rows) for x in batch)
     for j, b in enumerate(ids):
         results[b] = _index(batch[:2], j)
     return [r[0] for r in results], [r[1] for r in results]
 
 
+@traced("step")
 def pose_step(state, deltas, bases, opt, cameras, gts, lr, *,
               shared_state=False, mode, tile_args, lambda_dssim):
     """One batched pose step: B SE(3) tangents [B, 6] on bases [B, 7]
@@ -210,11 +218,14 @@ def pose_step(state, deltas, bases, opt, cameras, gts, lr, *,
     out = render_batched(state, cameras, se3_retr(deltas, bases),
                          shared_state=shared_state, mode=mode,
                          tile_args=tile_args)
-    ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
-    (g,) = torch.autograd.grad(ld["loss"].sum(), [deltas])
-    params, new_opt = adam_lib.apply({"pose": deltas.detach()},
-                                     {"pose": _finite(g, deltas)}, opt,
-                                     {"pose": lr})
+    with span("loss"):
+        ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
+    with span("backward"):
+        (g,) = torch.autograd.grad(ld["loss"].sum(), [deltas])
+    with span("adam"):
+        params, new_opt = adam_lib.apply({"pose": deltas.detach()},
+                                         {"pose": _finite(g, deltas)}, opt,
+                                         {"pose": lr})
     return params["pose"], new_opt, ld["loss"].detach()
 
 
@@ -243,10 +254,11 @@ def batched_pose_fit(states, bases: torch.Tensor,
               else deltas0.detach())
     opt = init_pose_opts(B, bases.device)
     for _ in range(n_iters):
-        deltas, opt, _ = pose_step(
-            state, deltas, bases, opt, cams, gts, lr,
-            shared_state=shared_state, mode=mode, tile_args=tile_args,
-            lambda_dssim=lambda_dssim)
+        with span("iteration"):
+            deltas, opt, _ = pose_step(
+                state, deltas, bases, opt, cams, gts, lr,
+                shared_state=shared_state, mode=mode, tile_args=tile_args,
+                lambda_dssim=lambda_dssim)
     return deltas
 
 

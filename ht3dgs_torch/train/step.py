@@ -17,12 +17,14 @@ from ..core.camera import Camera
 from ..core.gaussians import PARAM_FIELDS, GaussianState
 from ..core.se3 import se3_retr
 from ..raster import render
+from ..utils.profiling import span, traced
 from . import densify as densify_lib
 from .losses import compute_loss, psnr
 
 _APPLY_ADAM = ("all", "skip", "no_opacity")
 
 
+@traced("step")
 def gaussian_train_step(
     state: GaussianState,
     opt: adam_lib.AdamState,
@@ -49,35 +51,43 @@ def gaussian_train_step(
                         requires_grad=True)
     out = render(state.replace_params(params), camera, means2d_probe=probe,
                  mode=mode, tile_args=tile_args)
-    ld = compute_loss(out["image"], gt_image, lambda_dssim=lambda_dssim,
-                      lambda_depth=lambda_depth,
-                      depth_pred=out["depth"] if lambda_depth else None,
-                      depth_gt=depth_gt)
+    with span("loss"):
+        ld = compute_loss(out["image"], gt_image, lambda_dssim=lambda_dssim,
+                          lambda_depth=lambda_depth,
+                          depth_pred=out["depth"] if lambda_depth else None,
+                          depth_gt=depth_gt)
     leaves = list(params.values()) + [probe]
-    g = torch.autograd.grad(ld["loss"], leaves, allow_unused=True)
+    with span("backward"):
+        g = torch.autograd.grad(ld["loss"], leaves, allow_unused=True)
     g = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(leaves, g)]
     grads = dict(zip(PARAM_FIELDS, g[:-1]))
     probe_grad = g[-1]
 
     state = state.replace_params({f: p.detach() for f, p in params.items()})
     if track_stats:
-        state = densify_lib.accumulate_stats(state, probe_grad, out["radii"])
+        with span("stats"):
+            state = densify_lib.accumulate_stats(state, probe_grad,
+                                                 out["radii"])
     if apply_adam == "skip":
         new_opt = opt
     else:
         if apply_adam == "no_opacity":
             grads["opacity_logit"] = torch.zeros_like(grads["opacity_logit"])
-        new_params, new_opt = adam_lib.apply(state.params(), grads, opt, lrs)
+        with span("adam"):
+            new_params, new_opt = adam_lib.apply(state.params(), grads, opt,
+                                                 lrs)
         state = state.replace_params(new_params)
 
     zero = torch.zeros((), dtype=torch.int64, device=state.device)
     with torch.no_grad():
+        with span("loss"):
+            ps = psnr(out["image"], gt_image)
         metrics = {
             "loss": ld["loss"].detach(),
             "loss_rgb": ld["loss_rgb"].detach(),
             "loss_dssim": ld["loss_dssim"].detach(),
             "loss_depth": ld["loss_depth"].detach(),
-            "psnr": psnr(out["image"], gt_image),
+            "psnr": ps,
             "n_visible": (out["radii"] > 0).sum(),
             "n_dropped": out.get("n_dropped", zero),
             "n_dropped_m": out.get("n_dropped_m", zero),
@@ -86,6 +96,7 @@ def gaussian_train_step(
     return state, new_opt, metrics
 
 
+@traced("step")
 def pose_train_step(
     state: GaussianState,
     pose_delta: torch.Tensor,       # [6] tangent
@@ -104,18 +115,24 @@ def pose_train_step(
     delta = pose_delta.detach().requires_grad_(True)
     out = render(state, camera, pose=se3_retr(delta, pose_base), mode=mode,
                  tile_args=tile_args)
-    ld = compute_loss(out["image"], gt_image, lambda_dssim=lambda_dssim,
-                      lambda_depth=lambda_depth)
-    (g,) = torch.autograd.grad(ld["loss"], [delta])
+    with span("loss"):
+        ld = compute_loss(out["image"], gt_image, lambda_dssim=lambda_dssim,
+                          lambda_depth=lambda_depth)
+    with span("backward"):
+        (g,) = torch.autograd.grad(ld["loss"], [delta])
     if update_pose:
-        params, new_opt = adam_lib.apply({"pose": delta.detach()},
-                                         {"pose": g}, pose_opt, {"pose": lr})
+        with span("adam"):
+            params, new_opt = adam_lib.apply({"pose": delta.detach()},
+                                             {"pose": g}, pose_opt,
+                                             {"pose": lr})
         pose_delta = params["pose"]
     else:
         new_opt = pose_opt
     with torch.no_grad():
+        with span("loss"):
+            ps = psnr(out["image"], gt_image)
         metrics = {"loss": ld["loss"].detach(),
-                   "psnr": psnr(out["image"], gt_image),
+                   "psnr": ps,
                    "grad_norm": torch.linalg.norm(g)}
     return pose_delta, new_opt, metrics
 

@@ -1,26 +1,184 @@
-"""Tracing and phase timing. Counterpart of `ht3dgs.utils.profiling`:
+"""Tracing and phase timing. Counterpart of `ht3dgs.utils.profiling`.
+
+The port's tracer: `span(name)` marks a stretch of host work (a trainer
+phase, an iteration, a step, a layer of the step) and `count(name, value)`
+adds to a counter where the work is done (the binning's entries, slots and
+drops; the rows a render projects). Both do nothing unless a `tracing()`
+block is open: off, a span is one flag check that returns a shared no-op
+object and a count returns before it touches its value, so the off path
+adds no device operation, synchronise or host copy. On, a span records
+its name, its parent (the span open around it), the id of its training
+step and its start and end in ns on `time.time_ns()`, the clock the
+profiler's events are stamped on, and opens a `record_function` range of
+its name (a torch.profiler trace shows it); a counter adds into one device
+tensor per name, read once when the block exits. `tracing()` hands both
+back as a `Trace`.
+
 `torch_trace` captures a torch.profiler trace around any block (the
 counterpart of `jax_trace`), and `PhaseTimer` keeps the named-phase wall
-time and counts that the trainer logs at the end of a run. `host_share`
-splits a step's wall time on the card into device and host. `StepCounter`
-adds, per trainer phase, the steps, the blend kernels' launches, the
-farthest-first drops, the tile arguments of the last step and the size of
-every bundle the trainer finishes (`real_image_bench`, `chip_smoke.py`).
-`root_step_figures` times a trained root's step at the tile arguments the
-training used and at the eval sweep's, and `profile_step` splits one step's
-device time by kernel and by the port's layers; `blend_work` counts what
-the blend kernels' bound and instruction floor divide by."""
+time and counts that the trainer logs at the end of a run (each phase is a
+span too). `host_share` splits a step's wall time on the card into device
+and host. `StepCounter` adds, per trainer phase, the steps, the blend
+kernels' launches, the farthest-first drops, the tile arguments of the
+last step and the size of every bundle the trainer finishes
+(`real_image_bench`, `chip_smoke.py`). `root_step_figures` times a trained
+root's step at the tile arguments the training used and at the eval
+sweep's, and `profile_step` splits one step's device time by kernel and by
+the spans of the step's layers; `blend_work` counts what the blend
+kernels' bound and instruction floor divide by."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import statistics
 import time
 from collections import Counter, defaultdict
 from typing import Dict, List, Optional
+
+_trace: Optional["Trace"] = None    # the open tracing() block: tracing on
+
+
+class _NoSpan:
+    """What `span` returns with tracing off: one shared object."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "parent", "step", "start_ns", "end_ns",
+                 "_trace", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        import torch
+
+        t = self._trace = _trace
+        self.parent = t._open[-1] if t._open else None
+        step = self.attrs.pop("step", None)
+        if step is None and self.parent is not None:
+            step = self.parent.step
+        if step is None and self.name == "iteration":
+            # a step without a trainer iteration (Phase A's batched loops)
+            t._drawn -= 1
+            step = t._drawn
+        self.step, self.end_ns = step, None
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        t._open.append(self)
+        t._spans.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        self._trace._open.pop()
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager marking a stretch of host work as `name`. An
+    `iteration` span opens a training step: its `step` attribute (the
+    trainer's global iteration) is the id of every span inside it, and
+    without one the tracer draws a negative id. Other attributes are kept
+    with the span."""
+    if _trace is None:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def traced(name: str):
+    """Decorator: each call of the function is a span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            if _trace is None:
+                return fn(*a, **kw)
+            with _Span(name, {}):
+                return fn(*a, **kw)
+        return call
+    return wrap
+
+
+def count(name: str, value) -> None:
+    """Add value (an int, or a tensor's sum) to the counter `name`."""
+    if _trace is None or not _trace.counting:
+        return
+    _trace._add(name, value)
+
+
+class Trace:
+    """What a tracing() block recorded, filled when the block exits:
+    `spans`, a list of dicts in the order the spans opened (name, id =
+    the index in the list, parent = its parent's id or None, step,
+    start_ns, end_ns, and the span's attributes), and `counters`, the sum
+    of each counter (none where the block counts nothing)."""
+
+    def __init__(self, counting: bool = True):
+        self.counting = counting
+        self._spans: List[_Span] = []
+        self._open: List[_Span] = []   # innermost last
+        self._drawn = 0
+        self._dev: Dict[str, object] = {}
+        self._host: Dict[str, int] = defaultdict(int)
+        self.spans: List[dict] = []
+        self.counters: Dict[str, int] = {}
+
+    def _add(self, name: str, value) -> None:
+        if isinstance(value, int):
+            self._host[name] += value
+            return
+        import torch
+
+        v = value.detach().sum(dtype=torch.int64)
+        acc = self._dev.get(name)
+        self._dev[name] = v if acc is None else acc + v
+
+    def _close(self) -> None:
+        import torch
+
+        index = {id(s): i for i, s in enumerate(self._spans)}
+        self.spans = [
+            dict(s.attrs, name=s.name, id=i,
+                 parent=index.get(id(s.parent)), step=s.step,
+                 start_ns=s.start_ns, end_ns=s.end_ns)
+            for i, s in enumerate(self._spans)]
+        self.counters = dict(self._host)
+        if self._dev:
+            # one read of every counter
+            vals = torch.stack(list(self._dev.values())).tolist()
+            for k, v in zip(self._dev, vals):
+                self.counters[k] = self.counters.get(k, 0) + int(v)
+
+
+@contextlib.contextmanager
+def tracing(counters: bool = True):
+    """Turn spans and (unless counters is False) counters on for the
+    block; yields the Trace that is filled when the block exits. One block
+    at a time."""
+    global _trace
+    if _trace is not None:
+        raise RuntimeError("tracing() is already on")
+    t = _trace = Trace(counters)
+    try:
+        yield t
+    finally:
+        _trace = None
+        t._close()
 
 
 class PhaseTimer:
@@ -30,9 +188,12 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Time the block as phase `name` (host clock, no synchronise), a
+        span of that name."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -396,60 +557,25 @@ def root_tile_args(trainer, counter: StepCounter) -> dict:
             else None}
 
 
-# The port's layers, by the function of the step that runs an op: while
-# profiling, each of these is wrapped in a torch.profiler range of its
-# layer's name, and an op counts in the innermost range around it. A
-# backward op counts in the layer of the forward op whose autograd node it
-# runs, with the blend's backward as K2. (Python stacks would do without
-# the wrapping, but torch 2.11's profiler records none for the ops.)
+# The port's layers, by the span of the step that runs an op: an op counts
+# in the layer of the innermost layer span around it. A backward op counts
+# in the layer of the forward op whose autograd node it runs, with the
+# blend's backward as K2. (torch 2.11's profiler records no Python stacks
+# for the ops.)
 LAYERS = ("projection + SH", "binning", "K1", "K2", "assemble", "loss",
           "Adam", "densify stats", "other")
-_LAYER_FUNCS = (
-    ("ht3dgs_torch.raster", "_render", "projection + SH"),
-    ("ht3dgs_torch.raster.tiled", "_pack_attr_rows", "binning"),
-    ("ht3dgs_torch.raster.tiled", "build_tile_lists_from_rows", "binning"),
-    ("ht3dgs_torch.raster.tiled", "blend", "K1"),
-    ("ht3dgs_torch.raster.tiled", "_assemble", "assemble"),
-    ("ht3dgs_torch.train.step", "compute_loss", "loss"),
-    ("ht3dgs_torch.train.step", "psnr", "loss"),
-    ("ht3dgs_torch.core.adam", "apply", "Adam"),
-    ("ht3dgs_torch.train.densify", "accumulate_stats", "densify stats"),
-)
-_RANGE = "ht3dgs layer: "
+_SPAN_LAYER = {"projection": "projection + SH", "binning": "binning",
+               "blend": "K1", "assemble": "assemble", "loss": "loss",
+               "adam": "Adam", "stats": "densify stats"}
+# every span a step opens: their ranges are not ops
+_STEP_SPANS = frozenset(_SPAN_LAYER) | {"step", "backward"}
 
 
-@contextlib.contextmanager
-def _layer_ranges():
-    """Wrap each of _LAYER_FUNCS in a profiler range named for its layer;
-    the originals are put back on exit."""
-    import importlib
-
-    import torch
-
-    def ranged(fn, name):
-        def call(*a, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*a, **kw)
-        return call
-
-    originals = []
-    try:
-        for mod, attr, layer in _LAYER_FUNCS:
-            m = importlib.import_module(mod)
-            fn = getattr(m, attr)
-            originals.append((m, attr, fn))
-            setattr(m, attr, ranged(fn, _RANGE + layer))
-        yield
-    finally:
-        for m, attr, fn in originals:
-            setattr(m, attr, fn)
-
-
-def _forward_layer(evt) -> Optional[str]:
-    """The layer of the innermost range around a forward op."""
+def _span_layer(evt) -> Optional[str]:
+    """The layer of the innermost layer span around a forward op."""
     while evt is not None:
-        if evt.name.startswith(_RANGE):
-            return evt.name[len(_RANGE):]
+        if evt.name in _SPAN_LAYER:
+            return _SPAN_LAYER[evt.name]
         evt = evt.cpu_parent
     return None
 
@@ -463,7 +589,7 @@ def _node_op(name: str) -> str:
 
 def layer_times(events) -> Dict[str, dict]:
     """Device ms of a profile's kernels by the port's layer (forward and
-    backward; the profile taken under `_layer_ranges`) and, in the
+    backward; the profile taken under `tracing()`) and, in the
     binning, by the op that launched them. K1 and K2 go by kernel name;
     what no range claims is "other"."""
 
@@ -477,17 +603,17 @@ def layer_times(events) -> Dict[str, dict]:
     fwd = defaultdict(list)
     for e in events:
         if e.sequence_nr >= 0 and backward_node(e) is None \
-                and not e.name.startswith(_RANGE):
+                and e.name not in _STEP_SPANS:
             fwd[(e.sequence_nr, e.thread)].append(e)
 
     def layer_of(e):
         node = backward_node(e)
         if node is None:
-            return _forward_layer(e), "fwd"
+            return _span_layer(e), "fwd"
         cands = fwd.get((node.sequence_nr, node.fwd_thread), [])
         named = [c for c in cands if _node_op(c.name) == _node_op(node.name)]
         pick = (named or cands)[-1:]
-        layer = _forward_layer(pick[0]) if pick else None
+        layer = _span_layer(pick[0]) if pick else None
         return ("K2" if layer == "K1" else layer), "bwd"
 
     out = {k: {"ms": 0.0, "fwd_ms": 0.0, "bwd_ms": 0.0} for k in LAYERS}
@@ -511,7 +637,8 @@ def profile_step(step: dict, tile_args, label: str,
                  path: Optional[str] = None,
                  step_ms: Optional[float] = None) -> dict:
     """One gaussian_train_step of `step` (root_step's arguments, or any
-    state's) at tile_args under torch.profiler and `_layer_ranges`. Prints
+    state's) at tile_args under torch.profiler and `tracing()`, its
+    spans without counters (a count launches kernels of its own). Prints
     and returns the device busy time (as a share of the profiled step and
     of the unprofiled step_ms), the 12 kernels that take the most device
     time and the device time by layer (`layer_times`); writes the
@@ -528,16 +655,16 @@ def profile_step(step: dict, tile_args, label: str,
         torch.cuda.synchronize()
 
     one()
-    with _layer_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with tracing(counters=False), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     # device-side rows only (kernels, copies): the operator rows repeat
-    # their kernels' time, and so do the layer ranges' device rows
+    # their kernels' time, and so do the spans' device rows
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA
-               and not e.key.startswith(_RANGE)]
+               and e.key not in _STEP_SPANS]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
         raise RuntimeError(f"profile [{label}]: no device time recorded")
