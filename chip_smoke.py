@@ -177,6 +177,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -2800,6 +2801,13 @@ PUBLISHED = {
     # one under the cap; the stride-8 split: 14 train, 2 test frames
     "co3d": dict(config="configs/co3d/hydrant_106_12648_23157.yml",
                  frames=16, width=1200, height=900),
+    # trained from the COLMAP layout (FovX null): the camera's focal from
+    # the median FovX of the seven other Tanks configs (Museum's), as
+    # Church's cameras.bin is not in the repo; the stride-8 split: 21
+    # train, 3 test frames. Not a phase of the whole run: run it alone
+    # with --published church WORKDIR RECORD -
+    "church": dict(config="configs/tanks/Church.yml", frames=24,
+                   width=1600, height=900, fovx=1.3604490659339243),
 }
 # iteration budgets cut for the script's time, on the CLI; every other
 # value is the config's
@@ -2809,7 +2817,8 @@ PUBLISHED_CUTS = dict(phase_a_fit_iters=50, phase_a_pose_iters=50,
                       mss_phase1_iteration_per_frame=2,
                       reset_recovery_iters=10, eval_nvs_epochs=25)
 PUBLISHED_MODES = {"tanks": ("eval_pose", "eval_nvs", "render"),
-                   "co3d": ("eval_nvs", "render")}
+                   "co3d": ("eval_nvs", "render"),
+                   "church": ("eval_nvs", "render")}
 # the longest wait on another process of phase 15: Family's scene writer,
 # Family's Phase A (the CO3D process's wait), the CO3D process's end
 PUBLISHED_CHILD_S = 600
@@ -2854,11 +2863,12 @@ def published_scene(kind: str, seed: int, workers=None) -> None:
     spec = PUBLISHED[kind]
     model, pipe, _ = load_configs(os.path.join(REPO, spec["config"]))
     t0 = time.perf_counter()
-    if kind == "tanks":
-        scene_dir = os.path.dirname(model.data_path_train)
+    if kind in ("tanks", "church"):
+        scene_dir = os.path.normpath(model.data_path_eval)
         gt, K = photo_scene.write_tanks(
             scene_dir, n_frames=spec["frames"], height=spec["height"],
-            width=spec["width"], fovx=model.FovX, seed=seed, workers=workers)
+            width=spec["width"], fovx=model.FovX or spec["fovx"], seed=seed,
+            workers=workers)
         vfi_dir = os.path.join(scene_dir, "vfi")
     else:
         vfi_dir = os.path.join(os.path.dirname(pipe.depth_dir), "vfi")
@@ -2895,6 +2905,7 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
     from ht3dgs_torch.data import depth as depth_lib
     from ht3dgs_torch.data import readers
     from ht3dgs_torch.train import hierarchy
+    from ht3dgs_torch.utils import profiling
     from ht3dgs_torch.utils.config import load_configs
     from ht3dgs_torch.utils.profiling import StepCounter
 
@@ -2985,10 +2996,15 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
                     torch.cuda.reset_peak_memory_stats()
                 B.blend_fwd.launches = 0
                 B.blend_bwd.launches = 0
+                # Church's run records the tracer's counters and spans: MSS
+                # phase 1's pseudo-views (`_pseudo_view`)
+                tracer = (profiling.tracing() if kind == "church"
+                          else contextlib.nullcontext())
                 t0 = time.perf_counter()
-                run.main(["--mode", "train"] + argv, device=str(device))
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
+                with tracer as trace:
+                    run.main(["--mode", "train"] + argv, device=str(device))
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
                 train_s = time.perf_counter() - t0
                 launches = launch_counts(B)
             finally:
@@ -3012,7 +3028,7 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
                     k: v - k0[k] for k, v in launch_counts(B).items()},
                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                                  if device.type == "cuda" else None)}
-            if kind == "co3d":
+            if "eval_pose" not in PUBLISHED_MODES[kind]:
                 # the default split's test frames against the train poses:
                 # raises in both packages (ROADMAP Queue 3)
                 try:
@@ -3021,11 +3037,11 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
                     raised = None
                 except ValueError as e:
                     raised = str(e)
-                print(f"phase 15 (co3d): eval_pose left out: with the "
+                print(f"phase 15 ({kind}): eval_pose left out: with the "
                       f"default split it compares the {len(i_train)} train "
                       f"poses with the test frames' and raises in both "
                       f"packages (here: ValueError: {raised})")
-                check(raised is not None, "15 (co3d): eval_pose raises "
+                check(raised is not None, f"15 ({kind}): eval_pose raises "
                       "ValueError, as in the JAX package")
     finally:
         os.chdir(cwd)
@@ -3064,6 +3080,18 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
         "eval": evals, "eval_nvs": nvs_line, "eval_nvs_psnr": nvs_psnr,
         "pose_eval": pose_line, "rendered_frames": len(rendered),
         "launches": launches}
+    if trace is not None:
+        pseudo = [sp for sp in trace.spans if sp["name"] == "pseudo"]
+        rec["pseudo"] = dict(
+            {k: trace.counters.get(k, 0) for k in (
+                "pseudo_views", "pseudo_rows", "pseudo_dropped_k")},
+            spans=len(pseudo), in_frame=sum(
+                trace.spans[sp["parent"]]["name"] == "frame"
+                for sp in pseudo),
+            host_ms=sum(sp["end_ns"] - sp["start_ns"] for sp in pseudo)
+            / 1e6)
+        print(f"phase 15 ({kind}): MSS phase 1's pseudo-views (tracer): "
+              f"{rec['pseudo']}")
     print(f"phase 15 ({kind}): {spec['config']}: {spec['frames']} frames "
           f"{w.width}x{w.height} ({tr.seq_len} train) written in "
           f"{scene_s:.1f} s"
@@ -3109,6 +3137,18 @@ def published_config(B, device, seed: int, workdir: str, kind: str,
           f"{rec['peak_memory_gib']:.3f} GiB")
 
     what = f"15 ({kind})"
+    if kind == "church":
+        f0 = tr.data[0]
+        fx = spec["width"] / (2.0 * math.tan(spec["fovx"] / 2.0))
+        check(tr.model_cfg.data_type == "colmap" and tr.model_cfg.FovX is None
+              and abs(float(f0.intrinsics[0, 0]) - fx) < 1e-3 * fx,
+              f"{what}: trained from the COLMAP layout, its camera's focal "
+              f"{float(f0.intrinsics[0, 0]):.3f} px ({fx:.3f})")
+        pv = rec["pseudo"]
+        check(pv["pseudo_views"] > 0 and pv["spans"] == pv["pseudo_views"]
+              and pv["in_frame"] == pv["spans"],
+              f"{what}: a `pseudo` span inside `frame` for every pseudo-view "
+              f"({pv['pseudo_views']})")
     check((p.train_pose_mode, p.render_mode, p.init_max_points,
            p.phase_a_batch, p.tile_max_per_tile, p.tile_dup_factor,
            p.train_level, p.partition_strategy,
@@ -3227,10 +3267,11 @@ def main() -> None:
                     "and write its table of device time by kernel to PATH")
     ap.add_argument("--published", nargs=4,
                     metavar=("KIND", "WORKDIR", "RECORD", "AFTER"),
-                    help="run only phase 15's config KIND in WORKDIR, its "
-                    "training once the file AFTER exists, and write its "
-                    "record to RECORD as JSON (phase 15 runs the CO3D "
-                    "config this way, beside Family)")
+                    help="run only phase 15's config KIND (tanks, co3d or "
+                    "church) in WORKDIR, its training once the file AFTER "
+                    "exists (at once with AFTER -), and write its record "
+                    "to RECORD as JSON (phase 15 runs the CO3D config this "
+                    "way, beside Family)")
     args = ap.parse_args()
 
     import torch
@@ -3247,7 +3288,7 @@ def main() -> None:
     if args.published:
         kind, workdir, record, after = args.published
         rec = published_config(B, device, args.seed, workdir, kind,
-                               after=after)
+                               after=None if after == "-" else after)
         del rec["trainer"], rec["counter"]
         with open(record, "w") as f:
             json.dump(rec, f)

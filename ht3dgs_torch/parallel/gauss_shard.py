@@ -24,7 +24,7 @@ from ..core.gaussians import PARAM_FIELDS, GaussianState
 from ..raster.projection import project
 from ..raster.tiled import _pack_attr_rows, rasterize_from_rows
 from ..train import densify as densify_lib
-from ..train.losses import ssim_sharded
+from ..train.losses import leaf_grads, ssim_sharded
 from .comm import gather_rows, pack_counts, unpack_counts
 from .mesh import Mesh
 
@@ -129,9 +129,7 @@ def build_gauss_sharded_step(mesh: Mesh, height: int, width: int, *,
             share = share + lambda_dssim * (
                 1.0 / n - ssim_sharded(img, gt_b, axis, n_rgb))
         leaves = list(params.values()) + [probe]
-        gr = torch.autograd.grad(share, leaves, allow_unused=True)
-        gr = [torch.zeros_like(x) if gx is None else gx
-              for x, gx in zip(leaves, gr)]
+        gr = leaf_grads(share, leaves)
         with torch.no_grad():
             red = axis.all_reduce_(torch.cat([
                 share.detach().reshape(1),

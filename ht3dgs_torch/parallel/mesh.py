@@ -48,7 +48,8 @@ from ..core.camera import Camera
 from ..core.gaussians import PARAM_FIELDS, GaussianState
 from ..raster import render
 from ..train import densify as densify_lib
-from ..train.losses import (scale_shift_invariant_depth_loss_sharded,
+from ..train.losses import (leaf_grads,
+                            scale_shift_invariant_depth_loss_sharded,
                             ssim_sharded)
 from .comm import SINGLE, Axis, pack_counts, unpack_counts
 
@@ -388,9 +389,7 @@ def build_hierarchy_step(mesh: Mesh, height: int, width: int, *,
                     torch.clamp(out["depth"], 0.02, 20.0),
                     depth_gt[row0:row0 + block_h], axis)
         leaves = list(params.values()) + [probe]
-        g = torch.autograd.grad(share, leaves, allow_unused=True)
-        g = [torch.zeros_like(x) if gx is None else gx
-             for x, gx in zip(leaves, g)]
+        g = leaf_grads(share, leaves)
         with torch.no_grad():
             zero = torch.zeros((), dtype=torch.int64, device=state.device)
             mse = ((img - gt_b) ** 2).sum() / n_rgb

@@ -62,7 +62,7 @@ from ..parallel import comm
 from ..parallel import mesh as mesh_lib
 from ..raster import render_batched
 from ..utils.image import save_image
-from ..utils.profiling import PhaseTimer, span, traced
+from ..utils.profiling import PhaseTimer, count, span, traced
 from . import phase_a as pa
 from . import step as step_lib
 from .lockstep import pad_rows
@@ -639,19 +639,24 @@ class HTGaussianTrainer(GaussianTrainer):
                     f"n={int(bundle.state.n_live())}")
 
     def train_nonleaf_phase1(self, bundle: ModelBundle,
-                             children: List[ModelBundle]):
+                             children: List[ModelBundle],
+                             num_iterations: Optional[int] = None):
         """Pseudo-views rendered by the frozen children at SE(3)-
-        interpolated poses (MSS phase 1)."""
+        interpolated poses (MSS phase 1). The phase is
+        mss_phase1_iteration_per_frame steps a frame of the children;
+        num_iterations bounds one call to that many steps (the densify
+        window's ratio is still taken over the whole phase)."""
         indices = sorted({f for c in children for f in c.to_visit_frames})
         o = dataclasses.replace(self.sched)
         if self.sched.mss_phase1_densification_interval is not None:
             o.densification_interval = \
                 self.sched.mss_phase1_densification_interval
-        num_iterations = (self.sched.mss_phase1_iteration_per_frame
-                          * len(indices))
+        phase_len = self.sched.mss_phase1_iteration_per_frame * len(indices)
         ratio = self.sched.mss_phase1_densify_until_iter_ratio
         if ratio is not None:
-            o.densify_until_iter = int(num_iterations * ratio)
+            o.densify_until_iter = int(phase_len * ratio)
+        if num_iterations is None:
+            num_iterations = phase_len
 
         for it in range(1, num_iterations + 1):
             fidx = self.rng.choice(indices)
@@ -694,10 +699,14 @@ class HTGaussianTrainer(GaussianTrainer):
             raise ValueError(f"no child covers frame {fidx}")
         pose_wrt_child = pose_i @ np.linalg.inv(
             bundle.get_RT(child.start_fidx))
-        pseudo = step_lib.render_eval(
-            child.state, self.camera_for(0, pose=pose_wrt_child),
-            mode=self._mode, tile_args=self._tile_args)["image"]
-        return self.camera_for(0, pose=pose_i), pseudo
+        with span("pseudo"):
+            out = step_lib.render_eval(
+                child.state, self.camera_for(0, pose=pose_wrt_child),
+                mode=self._mode, tile_args=self._tile_args)
+        count("pseudo_views", 1)
+        count("pseudo_rows", child.state.live)
+        count("pseudo_dropped_k", out.get("n_dropped_tile", 0))
+        return self.camera_for(0, pose=pose_i), out["image"]
 
     # ------------------------------------------------------------------ #
     # merge

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -206,3 +206,17 @@ def psnr(pred, gt):
     """PSNR of one image, or [B] of a batch [B, H, W, C]."""
     mse = ((pred - gt) ** 2).mean(_IMAGE_DIMS)
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def leaf_grads(loss: torch.Tensor,
+               leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d leaf for each of a step's fresh leaves (zeros where the
+    loss does not reach one), by `backward()` into the leaves' `.grad`.
+    Not `torch.autograd.grad`: on the card its result is also held by the
+    autograd engine's task until the engine's device thread lets go of
+    the task, which can be after the call has returned and the step has
+    dropped its gradients, so they may still be allocated at the next
+    step's peak."""
+    loss.backward()
+    return [torch.zeros_like(x) if x.grad is None else x.grad
+            for x in leaves]

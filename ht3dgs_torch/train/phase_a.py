@@ -32,7 +32,7 @@ from ..core.gaussians import PARAM_FIELDS, GaussianState
 from ..core.se3 import se3_retr
 from ..raster import render_batched
 from ..utils.profiling import span, traced
-from .losses import compute_loss, psnr
+from .losses import compute_loss, leaf_grads, psnr
 
 # iterations between the host's reads of the early-stop flags
 POLL = 25
@@ -123,8 +123,7 @@ def fit_step(state: GaussianState, opt: adam_lib.AdamState,
     with span("loss"):
         ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
     with span("backward"):
-        g = torch.autograd.grad(ld["loss"].sum(), list(params.values()),
-                                allow_unused=True)
+        g = leaf_grads(ld["loss"].sum(), list(params.values()))
     grads = {f: _finite(gx, params[f]) for f, gx in zip(PARAM_FIELDS, g)}
     with span("adam"):
         new_params, new_opt = adam_lib.apply(
@@ -221,7 +220,7 @@ def pose_step(state, deltas, bases, opt, cameras, gts, lr, *,
     with span("loss"):
         ld = compute_loss(out["image"], gts, lambda_dssim=lambda_dssim)
     with span("backward"):
-        (g,) = torch.autograd.grad(ld["loss"].sum(), [deltas])
+        (g,) = leaf_grads(ld["loss"].sum(), [deltas])
     with span("adam"):
         params, new_opt = adam_lib.apply({"pose": deltas.detach()},
                                          {"pose": _finite(g, deltas)}, opt,

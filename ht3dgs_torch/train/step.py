@@ -19,7 +19,7 @@ from ..core.se3 import se3_retr
 from ..raster import render
 from ..utils.profiling import span, traced
 from . import densify as densify_lib
-from .losses import compute_loss, psnr
+from .losses import compute_loss, leaf_grads, psnr
 
 _APPLY_ADAM = ("all", "skip", "no_opacity")
 
@@ -58,8 +58,7 @@ def gaussian_train_step(
                           depth_gt=depth_gt)
     leaves = list(params.values()) + [probe]
     with span("backward"):
-        g = torch.autograd.grad(ld["loss"], leaves, allow_unused=True)
-    g = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(leaves, g)]
+        g = leaf_grads(ld["loss"], leaves)
     grads = dict(zip(PARAM_FIELDS, g[:-1]))
     probe_grad = g[-1]
 
@@ -119,7 +118,7 @@ def pose_train_step(
         ld = compute_loss(out["image"], gt_image, lambda_dssim=lambda_dssim,
                           lambda_depth=lambda_depth)
     with span("backward"):
-        (g,) = torch.autograd.grad(ld["loss"], [delta])
+        (g,) = leaf_grads(ld["loss"], [delta])
     if update_pose:
         with span("adam"):
             params, new_opt = adam_lib.apply({"pose": delta.detach()},

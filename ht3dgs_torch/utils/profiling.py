@@ -3,7 +3,8 @@
 The port's tracer: `span(name)` marks a stretch of host work (a trainer
 phase, an iteration, a step, a layer of the step) and `count(name, value)`
 adds to a counter where the work is done (the binning's entries, slots and
-drops; the rows a render projects). Both do nothing unless a `tracing()`
+drops; the rows a render projects; MSS phase 1's pseudo-views, the child's
+live rows and drops at K in `pseudo_*`). Both do nothing unless a `tracing()`
 block is open: off, a span is one flag check that returns a shared no-op
 object and a count returns before it touches its value, so the off path
 adds no device operation, synchronise or host copy. On, a span records

@@ -580,3 +580,53 @@ def test_step_counter_records_growths_and_resets():
          "tile_args": {"max_per_tile": 4096, "dup_factor": 32}}]
     assert counter.resets[None] == 1
     assert step_lib.reset_opacity is originals[-1][2]
+
+
+CHURCH_CUTS = dict(phase_a_fit_iters=1, phase_a_pose_iters=1,
+                   leaf_init_iters=1, single_step=1,
+                   num_iterations_per_frame_each_level="[1, 1, 1]",
+                   mss_phase1_iteration_per_frame=1, reset_recovery_iters=1,
+                   capacity_presize=1)
+
+
+def test_church_trains_from_colmap_layout(tmp_path, monkeypatch):
+    """configs/tanks/Church.yml (data_type_train colmap, FovX null) through
+    `run.main --config` on write_tanks' layout at 24x16, 8 frames (7 train
+    at stride 8), every budget cut to a step and the capacity to the init
+    cloud's (so that the renders take the oracle): the COLMAP reader's
+    frames and focal train Phase A, the four leaves, both merges and MSS
+    phases 1 and 2 at both non-leaf levels, and the checkpoint."""
+    from ht3dgs_torch import run
+
+    monkeypatch.chdir(tmp_path)
+    fovx = 1.3604490659339243
+    gt, K = photo_scene.write_tanks("data/Tanks/Church", n_frames=8,
+                                    height=16, width=24, fovx=fovx,
+                                    workers=2)
+    seen = {}
+    fit = TTrainer.hierarchical_training
+
+    def kept(self):
+        seen["trainer"] = self
+        return fit(self)
+
+    monkeypatch.setattr(TTrainer, "hierarchical_training", kept)
+    argv = ["--mode", "train", "--config",
+            os.path.join(REPO, "configs", "tanks", "Church.yml"),
+            "--vfi_provider", "precomputed",
+            "--vfi_dir", "data/Tanks/Church/vfi"]
+    for k, v in CHURCH_CUTS.items():
+        argv += [f"--{k}", str(v)]
+    run.main(argv, device="cpu")
+    tr = seen["trainer"]
+    assert tr.model_cfg.data_type == "colmap" and tr.model_cfg.FovX is None
+    assert [f.image_name for f in tr.data] == [
+        f"{i + 1:06d}" for i in range(8) if i != 4]
+    for f in tr.data:
+        np.testing.assert_allclose(f.intrinsics, K, rtol=1e-6)
+    timer = tr.timer.counts
+    assert (timer["merge"], timer["nonleaf_phase1"],
+            timer["nonleaf_phase2"]) == (3, 3, 3), dict(timer)
+    assert tr.gs_bundle.to_visit_frames == list(range(7))
+    assert os.path.exists(os.path.join(tr.result_path, "chkpnt",
+                                       "model.npz"))

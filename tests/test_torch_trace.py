@@ -121,6 +121,72 @@ def test_off_records_and_touches_nothing(scene, tmp_path, monkeypatch):
     assert profiling._trace is None
 
 
+def _pseudo_first(indices, ratio):
+    """A random stream whose first phase-1 step is a pseudo step."""
+    import random
+
+    for seed in range(100):
+        r = random.Random(seed)
+        r.choice(indices)
+        if r.random() < ratio:
+            return random.Random(seed)
+    raise AssertionError("no seed")
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_pseudo_step_records_its_span_and_counters(scene, tmp_path, traced,
+                                                   monkeypatch):
+    """One MSS phase 1 step on a pseudo-view: with tracing on, one `pseudo`
+    span inside the iteration's `frame` span, `pseudo_views` 1, and the
+    child render's live rows and drops at K (a small K, so that it drops)
+    in `pseudo_rows` and `pseudo_dropped_k`, equal to the render's own
+    `live_rows` and `dropped_k` of that render; with tracing off nothing
+    is made and no counter's value read."""
+    tr, bundle = _trainer(scene, tmp_path)
+    tr._tile_args = tuple(sorted(TILE_ARGS.items()))
+    st = bundle.state
+    children = [ModelBundle(state=st, opt=bundle.opt, radius=2.0,
+                            spatial_scale=2.0, poses=bundle.poses,
+                            start_fidx=k, to_visit_frames=[k, k + 1])
+                for k in (0, 1)]
+    tr.rng = _pseudo_first([0, 1, 2], tr.sched.mss_phase1_ratio)
+    tr.global_iteration = 20
+    pseudo_view = tr._pseudo_view
+    rendered = []
+
+    def kept(*a):
+        rendered.append(a)
+        return pseudo_view(*a)
+
+    tr._pseudo_view = kept
+    if not traced:
+        def refuse(*a, **kw):
+            raise AssertionError("tracing is off")
+
+        monkeypatch.setattr(profiling._Span, "__init__", refuse)
+        monkeypatch.setattr(profiling.Trace, "_add", refuse)
+        tr.train_nonleaf_phase1(bundle, children, 1)
+        assert profiling._trace is None and len(rendered) == 1
+        return
+    with profiling.tracing() as t:
+        tr.train_nonleaf_phase1(bundle, children, 1)
+    assert len(rendered) == 1
+    spans = t.spans
+    (pseudo,) = [s for s in spans if s["name"] == "pseudo"]
+    frame = spans[pseudo["parent"]]
+    assert frame["name"] == "frame" and frame["step"] == 21
+    assert spans[frame["parent"]]["name"] == "iteration"
+    inside = [s for s in spans if s["parent"] == pseudo["id"]]
+    assert {s["name"] for s in inside} == {"projection", "binning", "blend",
+                                           "assemble"}
+    c = t.counters
+    assert c["pseudo_views"] == 1
+    # the child's render and the root's step each add to the render's own
+    # counters: the root's rows are the child's here
+    assert c["pseudo_rows"] == int(st.n_live()) == c["live_rows"] // 2
+    assert 0 < c["pseudo_dropped_k"] <= c["dropped_k"]
+
+
 def _fill(records):
     out = {"entries": 0, "slots": 0, "dropped_m": 0, "dropped_k": 0}
     for r in records:
